@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (er3t_tpu_torch) on one NVIDIA GPU.
 
-    python chip_smoke.py                 # needs one CUDA card; ~2 min
+    python chip_smoke.py                 # needs one CUDA card; ~1 min
     python chip_smoke.py --profile       # also a torch.profiler window
 
 Phases (any failure raises and the exit code is non-zero):
 
 1. card name and power limit (nvidia-smi), torch/CUDA versions; exits
    non-zero before any work when no CUDA device is visible;
-2. builds the hand-written kernel(s) of er3t_tpu_torch/csrc with nvcc;
+2. builds the hand-written kernels of er3t_tpu_torch/csrc with nvcc, one
+   nvcc per source, all started together;
 3. kernel phase: the phase-pair kernel against its plain PyTorch version on
    the card, bitwise, on the bench scene's tables and on a 20-row table at
    B = 2^17 (times: CUDA events, median of 30 launches each);
@@ -19,7 +20,17 @@ Phases (any failure raises and the exit code is non-zero):
    phase-pair inputs are captured and re-checked bitwise, then a timed run
    of 4e6 photons; its domain-mean radiance must lie within
    max(1 %, 4 sigma) of the JAX reference below;
-5. front door: solve(target='radiance', ...) on the same scene.
+5. front door: solve(target='radiance', ...) on the same scene;
+6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
+   smem_stage and the bf16 phase pair) against its plain version,
+   bitwise, at the TPU probe scripts' shapes and at a ragged B = 100003,
+   timed beside it; then the probe path, the gather probes (python -m
+   er3t_tpu_torch.probes.gather_probe all), with every launch count set
+   to 0 just before: each probe kernel must have launched, and the shared
+   memory ceiling must be the card's opt-in limit, exactly; their JSON
+   lines are printed and stored under "probes".  It runs after the main
+   path because the main path's host-bound loop runs slower in a process
+   that has just run the probes.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
@@ -29,7 +40,6 @@ build/chip_smoke.json.
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -41,6 +51,8 @@ from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.cld import cld_gen_hem
 from er3t_tpu.pre.pha import pha_mie_wc
 from er3t_tpu_torch import _build
+from er3t_tpu_torch.probes import gather, gather_probe
+from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
 from er3t_tpu_torch.rtm import mc_flight
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import reduce_radiance, spectral_factors
@@ -79,8 +91,24 @@ REF_SIGMA = float(np.std(REF_RUN_MEANS, ddof=1))   # one 4e6-photon run
 
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
+GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
+# the kernels of the probe path: name -> (source, TPU kernels replaced)
+PROBE_KERNELS = {
+    'phase_pair_bf16': (PP_SOURCE, 'scripts/tpu_gather_probe3.py:144, '
+                                   'scripts/tpu_gather_probe3b.py:131'),
+    'take_reps': (GP_SOURCE, 'scripts/tpu_gather_probe.py:115'),
+    'gather_row_sum': (GP_SOURCE, 'scripts/tpu_gather_probe.py:152, '
+                                  'scripts/tpu_gather_probe.py:185'),
+    'take2d': (GP_SOURCE, 'scripts/tpu_gather_probe2.py:63, '
+                          'scripts/tpu_gather_probe3.py:58, '
+                          'scripts/tpu_gather_probe3b.py:58'),
+    'smem_stage': (GP_SOURCE, 'scripts/tpu_gather_probe.py:215'),
+}
+PROBE_WRAPPERS = (gather.take_reps, gather.gather_row_sum, gather.take2d,
+                  gather.smem_stage)
 OUT_JSON = os.path.join('build', 'chip_smoke.json')
 BATCH = 1 << 17                  # photon lanes of the production config
+RAGGED = 100_003                 # a lane count no block size divides
 PHOTONS = 4_000_000              # photons of the timed main-path run
 
 
@@ -91,13 +119,6 @@ def log(*a):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
-
-
-def card_line():
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def build_bench_scene(device):
@@ -115,29 +136,71 @@ def build_bench_scene(device):
     return atm, ab, kw, scene, st
 
 
-def device_ms(fn, n=30):
-    """Median device time of ``fn`` [ms]: the host first queues a long
-    sleep, so the n launches run back to back on the card and each event
-    pair brackets device work only."""
-    fn()
+def compare(got, ref):
+    """Kernel output vs plain output (tensors or tuples of them):
+    (max |diff|, bitwise equal)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    torch.cuda._sleep(100_000_000)
-    ev[0].record()
-    for i in range(n):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(n)]))
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    return err, all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
-def compare_kernel(args):
-    """Kernel vs plain version on the card: (max |diff|, bitwise equal)."""
-    pe, mn = phase_pair(*args)
-    rpe, rmn = phase_pair_ref(*args)
-    torch.cuda.synchronize()
-    err = max(float((pe - rpe).abs().max()), float((mn - rmn).abs().max()))
-    return err, bool(torch.equal(pe, rpe) and torch.equal(mn, rmn))
+def launch_counts():
+    return {'phase_pair': phase_pair.launches,
+            'phase_pair_bf16': phase_pair.launches_bf16,
+            **{f.__name__: f.launches for f in PROBE_WRAPPERS}}
+
+
+def reset_counts():
+    phase_pair.launches = phase_pair.launches_bf16 = 0
+    for f in PROBE_WRAPPERS:
+        f.launches = 0
+
+
+def probe_kernel_cases(rng, dev, gen):
+    """(kernel, case, kernel call, plain call) for every probe kernel at the
+    TPU probe scripts' shapes (B = 2^17 lanes) and at a ragged B = 100003;
+    the first case of each kernel is the one timed."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    cases = []
+
+    def add(kernel, case, fn, ref, *a):
+        cases.append((kernel, case, lambda: fn(*a), lambda: ref(*a)))
+
+    for b, rows, reps in ((BATCH, 61440, 4), (BATCH, 1 << 20, 1),
+                          (RAGGED, 61440, 4)):
+        add('take_reps', f'{rows}x1_reps{reps}_B{b}', gather.take_reps,
+            gather.take_reps_ref, randint(rows, b), randn(rows, 1), reps)
+    for b, rows, width in ((BATCH, 921600, 2), (BATCH, 512, 128),
+                           (RAGGED, 921600, 5)):
+        add('gather_row_sum', f'{rows}x{width}_B{b}', gather.gather_row_sum,
+            gather.gather_row_sum_ref, randint(rows, b), randn(rows, width))
+    for mode, tab, idx, hi in (('axis0', (1280, 128), (1280, 128), 1280),
+                               ('axis1', (2048, 1024), (2048, 128), 1024),
+                               ('rows', (4096, 128), (2048,), 4096),
+                               ('rows', (4096, 8), (RAGGED,), 4096),
+                               ('axis0', (4096, 8), (RAGGED, 8), 4096),
+                               ('axis1', (RAGGED, 16), (RAGGED, 8), 16)):
+        add('take2d', f'{mode}_tab{tab}_idx{idx}'.replace(' ', ''),
+            gather.take2d, gather.take2d_ref, randint(hi, *idx),
+            randn(*tab), mode)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for n in (limit // 4, 12345):
+        add('smem_stage', f'n{n}', gather.smem_stage, gather.smem_stage_ref,
+            randn(n))
+    pt_p = randn(40, 4096).to(torch.bfloat16)
+    pt_mu = randn(20, 8192).to(torch.bfloat16)
+    for b in (BATCH, RAGGED):
+        add('phase_pair_bf16', f'bf16_40x4096_20x8192_B{b}', phase_pair,
+            phase_pair_ref, *lane_inputs(rng, b, pt_p, pt_mu, dev))
+    return cases
 
 
 def lane_inputs(rng, b, pt_p, pt_mu, dev):
@@ -181,14 +244,18 @@ def run(args, dev):
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    lib = _build.build('phase_pair')
-    _build.load('phase_pair')
+    libs = _build.build_all()
+    for name in _build.KERNELS:
+        _build.load(name)
     report['build_s'] = time.perf_counter() - t0
-    log(f'# built {lib.name} in {report["build_s"]:.2f} s '
-        f'(nvcc {_build.build_seconds["phase_pair"]:.2f} s)')
-    for line in _build.build_log.get('phase_pair', '').splitlines():
-        if 'registers' in line or 'spill' in line:
-            log('#   ptxas:', line.strip())
+    report['nvcc_s'] = dict(_build.build_seconds)
+    log(f'# built {", ".join(p.name for p in libs.values())} in '
+        f'{report["build_s"]:.2f} s (nvcc {report["nvcc_s"]})')
+    for stem in libs:
+        for line in _build.build_log.get(stem, '').splitlines():
+            if 'Compiling entry' in line or 'registers' in line \
+                    or 'spill' in line:
+                log(f'#   ptxas {stem}:', line.strip())
 
     # ---- scene ----
     t0 = time.perf_counter()
@@ -213,7 +280,7 @@ def run(args, dev):
     for name, a, timed in (('bench_tables', bench_args, True),
                            ('20_rows', big_args, True),
                            ('20_rows_ragged_B100003', ragged_args, False)):
-        err, same = compare_kernel(a)
+        err, same = compare(phase_pair(*a), phase_pair_ref(*a))
         max_err = max(max_err, err)
         check(same, f'phase_pair kernel != plain on {name}: max |diff| {err}')
         if timed:
@@ -248,7 +315,7 @@ def run(args, dev):
         mc_flight.phase_pair = plain_pair
     check(int(warm.n_launched) == 100_000, 'warm-up launched count')
     for i, a in enumerate(captured):
-        err, same = compare_kernel(a)
+        err, same = compare(phase_pair(*a), phase_pair_ref(*a))
         max_err = max(max_err, err)
         check(same, f'phase_pair kernel != plain on captured flight inputs '
               f'#{i}: max |diff| {err}')
@@ -258,7 +325,7 @@ def run(args, dev):
 
     n_ph = PHOTONS
     stats = {}
-    phase_pair.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph, args.seed + 2,
@@ -312,11 +379,54 @@ def run(args, dev):
                            n_photon_effective=res.n_photon_effective)
     log('# solve: ' + json.dumps(report['solve']))
 
+    # ---- 6. probe phase ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    probe_err = dict.fromkeys(PROBE_KERNELS, 0.0)
+    probe_kt = {}
+    for kernel, case, kern, plain in probe_kernel_cases(rng, dev, gen):
+        err, same = compare(kern(), plain())
+        probe_err[kernel] = max(probe_err[kernel], err)
+        check(same, f'{kernel} kernel != plain on {case}: max |diff| {err}')
+        timed = kernel not in probe_kt
+        if timed:
+            probe_kt[kernel] = dict(case=case, ms=device_ms(kern),
+                                    plain_ms=device_ms(plain))
+        log(f'# {kernel} {case}: bitwise equal; '
+            f'{probe_kt[kernel] if timed else ""}')
+    report['probe_kernels'] = probe_kt
+
+    # the probe path, its launch counts from 0
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    reset_counts()
+    t0 = time.perf_counter()
+    probes = gather_probe.run('all', args.seed, dev)
+    torch.cuda.synchronize()
+    probe_counts = launch_counts()
+    report.update(probes=probes, probes_s=time.perf_counter() - t0,
+                  probe_launches=probe_counts)
+    log(f'# probes: {len(probes)} lines in {report["probes_s"]:.1f} s; '
+        f'launches {probe_counts}')
+    check(sum(r['probe'] == 'device' for r in probes) == len(
+        gather_probe.PROBES), 'not every probe entry point ran')
+    for name in PROBE_KERNELS:
+        check(probe_counts[name] > 0, f'{name} never launched on the probe '
+                                      f'path')
+    ceiling = [(r['bytes'], r['ok']) for r in probes
+               if r['probe'] == 'vmem_ceiling']
+    check(ceiling[-2:] == [(limit, True), (limit + 4, False)],
+          f'shared memory ceiling {ceiling[-2:]} is not the opt-in limit '
+          f'{limit} B')
+
     bt = kt['bench_tables']
     kernels = {'kernels': [dict(
         name='phase_pair', route='cuda', source=PP_SOURCE,
         replaces=PP_REPLACES, launches=launches, max_abs_err=max_err,
-        ms=bt['ms'], plain_ms=bt['plain_ms'])]}
+        ms=bt['ms'], plain_ms=bt['plain_ms'])] + [dict(
+            name=name, route='cuda', source=source, replaces=replaces,
+            launches=probe_counts[name], max_abs_err=probe_err[name],
+            ms=probe_kt[name]['ms'], plain_ms=probe_kt[name]['plain_ms'])
+            for name, (source, replaces) in PROBE_KERNELS.items()]}
     report['kernels'] = kernels
     os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)
     with open(OUT_JSON, 'w') as f:

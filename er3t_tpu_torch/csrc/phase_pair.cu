@@ -24,21 +24,30 @@
 // neighbouring bin of what PyTorch's separately rounded ops pick.
 // Row indices are clamped into each table, as JAX's gathers clamp, so a bad
 // row can never read outside the table.
+//
+// The kernel is a template on the table element type.  The f32 instance
+// (er3t_phase_pair) is the main path's.  The bf16 instance
+// (er3t_phase_pair_bf16) replaces make_pair of scripts/tpu_gather_probe3.py
+// and tpu_gather_probe3b.py, the one-plane prototype of pallas_phase.py that
+// looks up cast(pt)[row, bin] through a bf16 one-hot MXU product; it reads
+// the 16-bit value and widens it exactly, so it equals
+// pt.to(bfloat16)[row, bin].float() bit for bit and moves half the table
+// bytes of the f32 instance.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
+using er3t::clampi;
+using er3t::ldf;
 
+template <typename T>
 __global__ void phase_pair_kernel(const int* __restrict__ apf,
                                   const int* __restrict__ row_e,
                                   const float* __restrict__ mu,
                                   const float* __restrict__ u,
-                                  const float* __restrict__ pt_p,
-                                  const float* __restrict__ pt_mu,
+                                  const T* __restrict__ pt_p,
+                                  const T* __restrict__ pt_mu,
                                   float* __restrict__ pe_out,
                                   float* __restrict__ mu_out,
                                   int n, int rows_e, int n_m, int rows_s,
@@ -58,24 +67,41 @@ __global__ void phase_pair_kernel(const int* __restrict__ apf,
   const float tu = __fadd_rn(__fmul_rn(uu, (float)(n_u - 1)), 0.5f);
   const int iu = clampi(__float2int_rz(tu), 0, n_u - 1);
 
-  pe_out[i] = __ldg(pt_p + (size_t)r * n_m + ib);
-  mu_out[i] = __ldg(pt_mu + (size_t)a * n_u + iu);
+  pe_out[i] = ldf(pt_p + (size_t)r * n_m + ib);
+  mu_out[i] = ldf(pt_mu + (size_t)a * n_u + iu);
+}
+
+template <typename T>
+int launch(const void* apf, const void* row_e, const void* mu, const void* u,
+           const void* pt_p, const void* pt_mu, void* pe_out, void* mu_out,
+           int n, int rows_e, int n_m, int rows_s, int n_u, void* stream) {
+  phase_pair_kernel<T><<<er3t::blocks_for(n), er3t::kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int*)apf, (const int*)row_e, (const float*)mu, (const float*)u,
+      (const T*)pt_p, (const T*)pt_mu, (float*)pe_out, (float*)mu_out, n,
+      rows_e, n_m, rows_s, n_u);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry bound with ctypes: launches on the caller's stream, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
+// C entries bound with ctypes: each launches on the caller's stream, does
+// not synchronise, and returns cudaGetLastError() (0 = launched).
 extern "C" int er3t_phase_pair(const void* apf, const void* row_e,
                                const void* mu, const void* u,
                                const void* pt_p, const void* pt_mu,
                                void* pe_out, void* mu_out, int n, int rows_e,
                                int n_m, int rows_s, int n_u, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  phase_pair_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)apf, (const int*)row_e, (const float*)mu, (const float*)u,
-      (const float*)pt_p, (const float*)pt_mu, (float*)pe_out,
-      (float*)mu_out, n, rows_e, n_m, rows_s, n_u);
-  return (int)cudaGetLastError();
+  return launch<float>(apf, row_e, mu, u, pt_p, pt_mu, pe_out, mu_out, n,
+                       rows_e, n_m, rows_s, n_u, stream);
+}
+
+extern "C" int er3t_phase_pair_bf16(const void* apf, const void* row_e,
+                                    const void* mu, const void* u,
+                                    const void* pt_p, const void* pt_mu,
+                                    void* pe_out, void* mu_out, int n,
+                                    int rows_e, int n_m, int rows_s, int n_u,
+                                    void* stream) {
+  return launch<__nv_bfloat16>(apf, row_e, mu, u, pt_p, pt_mu, pe_out,
+                               mu_out, n, rows_e, n_m, rows_s, n_u, stream);
 }

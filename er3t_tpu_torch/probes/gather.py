@@ -1,0 +1,177 @@
+"""Gather kernels of the TPU gather probes, and their plain versions.
+
+Counterparts of the Pallas kernels of ``scripts/tpu_gather_probe.py``,
+``tpu_gather_probe2.py``, ``tpu_gather_probe3.py`` and
+``tpu_gather_probe3b.py`` (K2-K8 in PERF.md; the phase-pair prototype of
+K7/K8 is :func:`er3t_tpu_torch.rtm.phase_pair.phase_pair` on bf16 or f32
+tables).  On CUDA tensors each wrapper launches its hand-written kernel of
+``er3t_tpu_torch/csrc/gather_probe.cu`` and adds one to its ``launches``;
+on CPU tensors it runs its plain PyTorch version (``*_ref``), which the
+kernel equals bit for bit: the sums run in the same order.  Indices are
+clamped into their tables (``take_reps`` wraps them, as the TPU kernel
+does).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._build import launch
+
+__all__ = ['take_reps', 'take_reps_ref', 'gather_row_sum',
+           'gather_row_sum_ref', 'take2d', 'take2d_ref', 'smem_stage',
+           'smem_stage_ref', 'TAKE2D_MODES']
+
+TAKE2D_MODES = ('rows', 'axis0', 'axis1')
+_MAX = 2 ** 30          # every size a kernel indexes with 32-bit ints
+
+
+def _check(fn, dev, **tensors):
+    """Each keyword is ``name=(tensor, dtype, ndims)``, ndims a tuple of the
+    allowed dimension counts."""
+    for name, (t, dt, nds) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f'{fn}: {name} is on {t.device}, not {dev}')
+        if t.dtype != dt or t.dim() not in nds:
+            raise ValueError(f'{fn}: {name} must be a {dt} tensor of '
+                             f'{" or ".join(map(str, nds))} dims, got '
+                             f'{t.dim()}-D {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{fn}: {name} must be contiguous')
+        if t.numel() == 0 or t.numel() >= _MAX:
+            raise ValueError(f'{fn}: {name} must have 1 to 2^30 - 1 elements')
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{fn}: no kernel for device {dev}')
+
+
+def _launch(fn, name, dev, *args):
+    launch(name, dev, *args)
+    fn.launches += 1
+
+
+# ---- K2: scripts/tpu_gather_probe.py:105-113 ----
+
+def take_reps_ref(idx, tab, reps):
+    """``out[b] = sum_{r<reps} tab[(idx[b] + r) mod rows, min(r, w - 1)]``,
+    summed in r order (mod as jnp's %)."""
+    rows, width = tab.shape
+    acc = torch.zeros(idx.shape, dtype=tab.dtype, device=tab.device)
+    for r in range(reps):
+        row = torch.remainder(idx.long() + r, rows)
+        acc = acc + tab[row, min(r, width - 1)]
+    return acc
+
+
+def take_reps(idx, tab, reps):
+    """K2 on (B,) int32 ``idx`` and an (R, W) f32 ``tab``; (B,) f32."""
+    dev = idx.device
+    _check('take_reps', dev, idx=(idx, torch.int32, (1,)),
+           tab=(tab, torch.float32, (2,)))
+    if not 1 <= reps < _MAX:
+        raise ValueError(f'take_reps: reps must be positive, got {reps}')
+    if dev.type == 'cpu':
+        return take_reps_ref(idx, tab, reps)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    _launch(take_reps, 'take_reps', dev, idx.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), idx.numel(), tab.shape[0], tab.shape[1], reps)
+    return out
+
+
+# ---- K3: scripts/tpu_gather_probe.py:145-150; K4: :178-183 ----
+
+def gather_row_sum_ref(idx, tab):
+    """``out[b] = sum_c tab[idx[b], c]``, summed in c order."""
+    rows = tab[torch.clamp(idx, 0, tab.shape[0] - 1).long()]
+    acc = torch.zeros(idx.shape, dtype=tab.dtype, device=tab.device)
+    for c in range(tab.shape[1]):
+        acc = acc + rows[:, c]
+    return acc
+
+
+def gather_row_sum(idx, tab):
+    """K3 (the flat ``(R * W,)`` table of K3 is ``tab.view(R, W)``) and K4
+    on (B,) int32 ``idx`` and an (R, W) f32 ``tab``; (B,) f32."""
+    dev = idx.device
+    _check('gather_row_sum', dev, idx=(idx, torch.int32, (1,)),
+           tab=(tab, torch.float32, (2,)))
+    if dev.type == 'cpu':
+        return gather_row_sum_ref(idx, tab)
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    _launch(gather_row_sum, 'gather_row_sum', dev, idx.data_ptr(),
+            tab.data_ptr(), out.data_ptr(), idx.numel(), tab.shape[0],
+            tab.shape[1])
+    return out
+
+
+# ---- K6: scripts/tpu_gather_probe2.py:73-102; K7/K8 mosaic_form ----
+
+def take2d_ref(idx, tab, mode):
+    """``out[i, j] = tab[r, c]``: ``rows`` r = idx[i], c = j (idx (n,) or
+    (n, 1), out (n, C)); ``axis0`` r = idx[i, j], c = j; ``axis1`` r = i,
+    c = idx[i, j] (out the shape of idx)."""
+    rows, cols = tab.shape
+    if mode == 'rows':
+        return tab[torch.clamp(idx.reshape(-1), 0, rows - 1).long()]
+    if mode == 'axis0':
+        return torch.gather(tab, 0, torch.clamp(idx, 0, rows - 1).long())
+    return torch.gather(tab, 1, torch.clamp(idx, 0, cols - 1).long())
+
+
+def take2d(idx, tab, mode):
+    """K6, and the take_along_axis forms of K7/K8: see :func:`take2d_ref`.
+    ``tab`` is (R, C) f32, ``idx`` int32."""
+    dev = idx.device
+    if mode not in TAKE2D_MODES:
+        raise ValueError(f'take2d: mode must be one of {TAKE2D_MODES}')
+    _check('take2d', dev, idx=(idx, torch.int32, (1, 2)),
+           tab=(tab, torch.float32, (2,)))
+    rows, cols = tab.shape
+    if mode == 'rows':
+        if idx.dim() == 2 and idx.shape[1] != 1:
+            raise ValueError('take2d rows: idx must be (n,) or (n, 1)')
+        n_i, n_j = idx.shape[0], cols
+    else:
+        axis = 1 if mode == 'axis0' else 0      # the axis idx shares with tab
+        if idx.dim() != 2 or idx.shape[axis] != tab.shape[axis]:
+            raise ValueError(f'take2d {mode}: idx must be 2-D and match tab '
+                             f'on the other axis; idx {tuple(idx.shape)}, '
+                             f'tab {tuple(tab.shape)}')
+        n_i, n_j = idx.shape
+    if n_i * n_j >= _MAX:
+        raise ValueError('take2d: output must have below 2^30 elements')
+    if dev.type == 'cpu':
+        return take2d_ref(idx, tab, mode)
+    out = torch.empty((n_i, n_j), dtype=torch.float32, device=dev)
+    _launch(take2d, 'take2d', dev, idx.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), TAKE2D_MODES.index(mode), n_i, n_j, rows, cols)
+    return out
+
+
+# ---- K5: scripts/tpu_gather_probe.py:212-213 ----
+
+def smem_stage_ref(tab):
+    """``tab[0] + tab[n - 1]`` as a (1,) tensor."""
+    return (tab[0] + tab[-1]).reshape(1)
+
+
+def smem_stage(tab):
+    """K5 on an (n,) f32 ``tab``: one block stages the whole table in
+    shared memory and returns ``tab[0] + tab[n - 1]`` from it.  Above the
+    card's opt-in shared memory per block the entry point is refused and
+    this raises :class:`er3t_tpu_torch._build.CudaError`."""
+    dev = tab.device
+    _check('smem_stage', dev, tab=(tab, torch.float32, (1,)))
+    if tab.numel() * 4 >= 2 ** 31:
+        raise ValueError('smem_stage: table must be below 2 GiB')
+    if dev.type == 'cpu':
+        return smem_stage_ref(tab)
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    _launch(smem_stage, 'smem_stage', dev, tab.data_ptr(), out.data_ptr(),
+            tab.numel())
+    return out
+
+
+take_reps.launches = 0
+gather_row_sum.launches = 0
+take2d.launches = 0
+smem_stage.launches = 0

@@ -14,6 +14,8 @@ import torch
 from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.abs import abs_synthetic
 from er3t_tpu.pre.cld import cld_gen_hem
+from er3t_tpu_torch._build import CudaError
+from er3t_tpu_torch.probes import gather
 from er3t_tpu_torch.rtm import mc_flight
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import spectral_factors
@@ -102,3 +104,85 @@ def test_flight_step_on_card_matches_cpu(cuda):
         assert float(got.rad.sum()) == pytest.approx(float(ref.rad.sum()),
                                                      rel=1e-4)
         c = ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1 << 17, 100_003], ids=['B131072', 'B100003'])
+def test_phase_pair_bf16_kernel_equals_plain(cuda, b):
+    """The bf16 instance (K7/K8 make_pair) at the probe scripts' tables:
+    bitwise equal to pt.to(bfloat16)[row, bin].float()."""
+    rng = np.random.default_rng(4)
+    a = [torch.from_numpy(x).to(cuda)
+         for x in _lanes(rng, b, 20, 4096, 8192)]
+    a[4], a[5] = a[4].to(torch.bfloat16), a[5].to(torch.bfloat16)
+    before = (phase_pair.launches, phase_pair.launches_bf16)
+    pe, mn = phase_pair(*a)
+    torch.cuda.synchronize()
+    assert (phase_pair.launches, phase_pair.launches_bf16) == \
+        (before[0], before[1] + 1)
+    ib = ((((a[2] + 1.0) * 0.5) * 4095 + 0.5).to(torch.int32)).clamp(0, 4095)
+    iu = ((a[3] * 8191 + 0.5).to(torch.int32)).clamp(0, 8191)
+    assert torch.equal(pe, a[4][a[1].long(), ib.long()].float())
+    assert torch.equal(mn, a[5][a[0].long(), iu.long()].float())
+
+
+def _probe_case(case, b, rng):
+    """(wrapper, plain version, numpy arguments) of a probe kernel case at
+    the TPU probe scripts' shapes, b lanes."""
+    def idx(hi, *shape):
+        return rng.integers(0, hi, shape or (b,)).astype(np.int32)
+
+    def tab(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    g = gather
+    return {
+        'take_reps_61440x1_r4': (g.take_reps, g.take_reps_ref,
+                                 (idx(61440), tab(61440, 1), 4)),
+        'take_reps_1Mx1_r1': (g.take_reps, g.take_reps_ref,
+                              (idx(1 << 20), tab(1 << 20, 1), 1)),
+        'row_sum_921600x2': (g.gather_row_sum, g.gather_row_sum_ref,
+                             (idx(921600), tab(921600, 2))),
+        'row_sum_512x128': (g.gather_row_sum, g.gather_row_sum_ref,
+                            (idx(512), tab(512, 128))),
+        'take2d_rows_4096x128': (g.take2d, g.take2d_ref,
+                                 (idx(4096), tab(4096, 128), 'rows')),
+        'take2d_axis0_4096x8': (g.take2d, g.take2d_ref,
+                                (idx(4096, b, 8), tab(4096, 8), 'axis0')),
+        'take2d_axis1_1024': (g.take2d, g.take2d_ref,
+                              (idx(1024, b // 64, 128), tab(b // 64, 1024),
+                               'axis1')),
+    }[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1 << 17, 100_003], ids=['B131072', 'B100003'])
+@pytest.mark.parametrize('case', [
+    'take_reps_61440x1_r4', 'take_reps_1Mx1_r1', 'row_sum_921600x2',
+    'row_sum_512x128', 'take2d_rows_4096x128', 'take2d_axis0_4096x8',
+    'take2d_axis1_1024'])
+def test_probe_kernel_equals_plain(cuda, case, b):
+    fn, ref, args = _probe_case(case, b, np.random.default_rng(5))
+    args = [torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+            for a in args]
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(out, ref(*args))
+
+
+@pytest.mark.cuda
+def test_smem_stage_holds_the_optin_limit_and_is_refused_above(cuda):
+    limit = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    tab = torch.randn(limit // 4, device=cuda)
+    assert torch.equal(gather.smem_stage(tab), gather.smem_stage_ref(tab))
+    before = gather.smem_stage.launches
+    with pytest.raises(CudaError) as err:
+        gather.smem_stage(torch.randn(limit // 4 + 1, device=cuda))
+    assert err.value.code != 0 and gather.smem_stage.launches == before
+    # the refusal is cleared: later launches of the process still work
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0
+    assert torch.equal(gather.smem_stage(tab[:12345]),
+                       gather.smem_stage_ref(tab[:12345]))

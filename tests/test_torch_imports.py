@@ -1,4 +1,5 @@
-"""The port never imports JAX, and chip_smoke.py has no CPU fallback."""
+"""The port never imports JAX, and neither chip_smoke.py nor the gather
+probes have a CPU fallback."""
 
 import os
 import subprocess
@@ -10,7 +11,8 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.rtm.scene', 'er3t_tpu_torch.rtm.brdf',
                 'er3t_tpu_torch.rtm.phase_pair', 'er3t_tpu_torch.rtm.mc_flight',
                 'er3t_tpu_torch.rtm.out', 'er3t_tpu_torch.rtm.solver',
-                'chip_smoke')
+                'er3t_tpu_torch.probes', 'er3t_tpu_torch.probes.gather',
+                'er3t_tpu_torch.probes.gather_probe', 'chip_smoke')
 
 
 def _python(code, **env):
@@ -39,4 +41,15 @@ def test_chip_smoke_refuses_without_cuda():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+    assert 'no CUDA device' in proc.stderr
+
+
+def test_gather_probe_refuses_without_cuda():
+    proc = subprocess.run(
+        [sys.executable, '-m', 'er3t_tpu_torch.probes.gather_probe', 'all'],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
+                           CUDA_VISIBLE_DEVICES=''),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"probe"' not in proc.stdout
     assert 'no CUDA device' in proc.stderr
