@@ -10,27 +10,38 @@ Phases (any failure raises and the exit code is non-zero):
    non-zero before any work when no CUDA device is visible;
 2. builds the hand-written kernels of er3t_tpu_torch/csrc with nvcc, one
    nvcc per source, all started together;
-3. kernel phase: the phase-pair kernel against its plain PyTorch version on
-   the card, bitwise, on the bench scene's tables and on a 20-row table at
-   B = 2^17 (times: CUDA events, median of 30 launches each);
+3. kernel phase: the launch floor (the empty kernel), then the phase-pair
+   kernel against its plain PyTorch version on the card, bitwise, on the
+   bench scene's tables and on a 20-row table at B = 2^17, at a ragged
+   B = 100003 and on lane arrays one element off 16-byte alignment;
 4. main path: the bench scene of bench.py (480x480 Mie broken cloud, 16
-   g-points, 25-deg truncation) through the port's build_scene and
-   run_transport_flight with the production config (batch 2^17,
-   tile_size 16, qmc_launch, n_scat_max 600, rad_w); a warm-up run whose
-   phase-pair inputs are captured and re-checked bitwise, then a timed run
-   of 4e6 photons; its domain-mean radiance must lie within
+   g-points, 25-deg truncation) built from er3t_tpu_torch.pre and run
+   through the port's build_scene and run_transport_flight with the
+   production config (batch 2^17, tile_size 16, qmc_launch, n_scat_max 600,
+   rad_w); a warm-up run whose phase-pair inputs are captured and
+   re-checked bitwise, then a timed run of 4e6 photons with every launch
+   count set to 0 just before; phase_pair must have launched once per
+   flight step, and its domain-mean radiance must lie within
    max(1 %, 4 sigma) of the JAX reference below;
 5. front door: solve(target='radiance', ...) on the same scene;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
-   smem_stage and the bf16 phase pair) against its plain version,
-   bitwise, at the TPU probe scripts' shapes and at a ragged B = 100003,
-   timed beside it; then the probe path, the gather probes (python -m
-   er3t_tpu_torch.probes.gather_probe all), with every launch count set
-   to 0 just before: each probe kernel must have launched, and the shared
-   memory ceiling must be the card's opt-in limit, exactly; their JSON
-   lines are printed and stored under "probes".  It runs after the main
-   path because the main path's host-bound loop runs slower in a process
-   that has just run the probes.
+   smem_stage, the bf16 phase pair) against its plain version, bitwise,
+   at the TPU probe scripts' shapes and at a ragged B = 100003, timed
+   beside it; then the probe path, the gather probes
+   (python -m er3t_tpu_torch.probes.gather_probe all), with every launch
+   count set to 0 just before: each probe kernel must have launched, and
+   the shared memory ceiling must be the card's opt-in limit, exactly;
+   their JSON lines are printed and stored under "probes".  It runs after
+   the main path because the main path's host-bound loop runs slower in a
+   process that has just run the probes.
+
+Times are device times from CUDA events, amortised over 100 back-to-back
+calls (gather_probe.device_ms).  Beside each kernel's time stand its plain
+version's, the launch floor's, the time of one PyTorch call that computes
+the same function where there is one (library_ms, timed here only), and
+its bound: the larger of the bytes it must move (inputs read once, outputs
+written once; of a gathered table, the elements this run's indices touch)
+over 3.35 TB/s and its float operations over 67 TFLOP/s.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
@@ -45,12 +56,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from er3t_tpu.pre.abs import abs_synthetic
-from er3t_tpu.pre.atm import atm_atmmod
-from er3t_tpu.pre.cld import cld_gen_hem
-from er3t_tpu.pre.pha import pha_mie_wc
 from er3t_tpu_torch import _build
+from er3t_tpu_torch.pre.abs import abs_synthetic
+from er3t_tpu_torch.pre.atm import atm_atmmod
+from er3t_tpu_torch.pre.cld import cld_gen_hem
+from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
 from er3t_tpu_torch.rtm import mc_flight
@@ -110,6 +122,11 @@ OUT_JSON = os.path.join('build', 'chip_smoke.json')
 BATCH = 1 << 17                  # photon lanes of the production config
 RAGGED = 100_003                 # a lane count no block size divides
 PHOTONS = 4_000_000              # photons of the timed main-path run
+WARM_PHOTONS = 100_000           # photons of the warm-up run
+SOLVE_PHOTONS = 1_000_000        # photons per run of the front door
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, HBM3
+F32_FLOPS = 67e12                # H100 SXM data sheet, f32 outside the
+                                 # tensor cores
 
 
 def log(*a):
@@ -158,10 +175,99 @@ def reset_counts():
         f.launches = 0
 
 
+# ---- what each kernel must move: (bytes, float operations) ----
+
+def _touched(flat):
+    """Distinct table elements named by a tensor of flat offsets."""
+    return int(torch.unique(flat).numel())
+
+
+def pair_cost(apf, row_e, mu, u, pt_p, pt_mu):
+    """16 B in and 8 B out per lane, and the table entries it reads; the
+    bins as phase_pair_ref computes them."""
+    n_m, n_u = pt_p.shape[1], pt_mu.shape[1]
+    ib = torch.clamp((((mu + 1.0) * 0.5) * (n_m - 1) + 0.5).to(torch.int32),
+                     0, n_m - 1)
+    iu = torch.clamp((u * (n_u - 1) + 0.5).to(torch.int32), 0, n_u - 1)
+    ev = torch.clamp(row_e, 0, pt_p.shape[0] - 1).long() * n_m + ib
+    sm = torch.clamp(apf, 0, pt_mu.shape[0] - 1).long() * n_u + iu
+    b = apf.numel()
+    return (24 * b + pt_p.element_size() * (_touched(ev) + _touched(sm)),
+            6 * b)
+
+
+def take_reps_cost(idx, tab, reps):
+    rows, width = tab.shape
+    flat = torch.cat([torch.remainder(idx.long() + r, rows) * width
+                      + min(r, width - 1) for r in range(reps)])
+    return 8 * idx.numel() + 4 * _touched(flat), idx.numel() * reps
+
+
+def row_sum_cost(idx, tab):
+    rows = _touched(torch.clamp(idx, 0, tab.shape[0] - 1))
+    return 8 * idx.numel() + 4 * rows * tab.shape[1], idx.numel() * tab.shape[1]
+
+
+def take2d_cost(idx, tab, mode):
+    rows, cols = tab.shape
+    if mode == 'rows':
+        n_out = idx.numel() * cols
+        flat = torch.clamp(idx.reshape(-1), 0, rows - 1).long()
+        return 4 * idx.numel() + 4 * n_out + 4 * _touched(flat) * cols, 0
+    j = torch.arange(idx.shape[1], device=idx.device)
+    i = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    flat = (torch.clamp(idx, 0, rows - 1).long() * cols + j if mode == 'axis0'
+            else i * cols + torch.clamp(idx, 0, cols - 1).long())
+    return 8 * idx.numel() + 4 * _touched(flat), 0
+
+
+def stage_cost(tab):
+    """K5's work is staging the whole table: every byte read once."""
+    return 4 * tab.numel() + 4, 1
+
+
+def take2d_library(idx, tab, mode):
+    """One PyTorch call for take2d: advanced indexing or torch.gather."""
+    i64 = idx.long()
+    if mode == 'rows':
+        i64 = i64.reshape(-1)
+        return lambda: tab[i64]
+    return lambda: torch.gather(tab, 0 if mode == 'axis0' else 1, i64)
+
+
+def row_sum_library(idx, tab):
+    """One PyTorch call for gather_row_sum: an embedding bag of one row."""
+    i64 = idx.long().reshape(-1, 1)
+    return lambda: F.embedding_bag(i64, tab, mode='sum')
+
+
+def bound(cost):
+    """(bound_ms, bound_by) of (bytes, ops)."""
+    nbytes, ops = cost
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_b, t_o), 'bytes' if t_b >= t_o else 'operations'
+
+
+def time_case(c, floor_ms):
+    """Times of a kernel case: kernel, plain version, library call, and
+    its bound from this run's inputs."""
+    nbytes, ops = c['cost']()
+    bound_ms, bound_by = bound((nbytes, ops))
+    lib = c.get('library')
+    return dict(case=c['case'], ms=device_ms(c['kern']),
+                plain_ms=device_ms(c['plain']),
+                library_ms=device_ms(lib) if lib is not None else None,
+                floor_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, ops=ops)
+
+
 def probe_kernel_cases(rng, dev, gen):
-    """(kernel, case, kernel call, plain call) for every probe kernel at the
-    TPU probe scripts' shapes (B = 2^17 lanes) and at a ragged B = 100003;
-    the first case of each kernel is the one timed."""
+    """Cases of every probe kernel at the TPU probe scripts' shapes (B =
+    2^17 lanes) and at a ragged B = 100003.  A case that stands for a TPU
+    kernel of the PERF.md table carries its ``row`` (K2-K7; K8 runs K7's
+    kernels at K7's shapes), its cost and its library call, and is timed;
+    the first such case of each kernel is the kernel's entry in the
+    kernels line."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
@@ -171,46 +277,62 @@ def probe_kernel_cases(rng, dev, gen):
 
     cases = []
 
-    def add(kernel, case, fn, ref, *a):
-        cases.append((kernel, case, lambda: fn(*a), lambda: ref(*a)))
+    def add(kernel, case, fn, ref, *a, row=None, cost=None, library=None):
+        cases.append(dict(kernel=kernel, case=case, row=row,
+                          kern=lambda: fn(*a), plain=lambda: ref(*a),
+                          cost=row and (lambda: cost(*a)),
+                          library=row and library and library(*a)))
 
-    for b, rows, reps in ((BATCH, 61440, 4), (BATCH, 1 << 20, 1),
-                          (RAGGED, 61440, 4)):
+    for row, (b, rows, reps) in zip(('K2', None, None),
+                                    ((BATCH, 61440, 4), (BATCH, 1 << 20, 1),
+                                     (RAGGED, 61440, 4))):
         add('take_reps', f'{rows}x1_reps{reps}_B{b}', gather.take_reps,
-            gather.take_reps_ref, randint(rows, b), randn(rows, 1), reps)
-    for b, rows, width in ((BATCH, 921600, 2), (BATCH, 512, 128),
-                           (RAGGED, 921600, 5)):
+            gather.take_reps_ref, randint(rows, b), randn(rows, 1), reps,
+            row=row, cost=take_reps_cost)
+    for row, (b, rows, width) in zip(('K3', 'K4', None),
+                                     ((BATCH, 921600, 2), (BATCH, 512, 128),
+                                      (RAGGED, 921600, 5))):
         add('gather_row_sum', f'{rows}x{width}_B{b}', gather.gather_row_sum,
-            gather.gather_row_sum_ref, randint(rows, b), randn(rows, width))
-    for mode, tab, idx, hi in (('axis0', (1280, 128), (1280, 128), 1280),
-                               ('axis1', (2048, 1024), (2048, 128), 1024),
-                               ('rows', (4096, 128), (2048,), 4096),
-                               ('rows', (4096, 8), (RAGGED,), 4096),
-                               ('axis0', (4096, 8), (RAGGED, 8), 4096),
-                               ('axis1', (RAGGED, 16), (RAGGED, 8), 16)):
+            gather.gather_row_sum_ref, randint(rows, b), randn(rows, width),
+            row=row, cost=row_sum_cost, library=row_sum_library)
+    for row, (mode, tab, idx, hi) in zip(('K7', 'K6', None, None, None,
+                                          None), (
+            ('axis0', (1280, 128), (1280, 128), 1280),
+            ('axis1', (2048, 1024), (2048, 128), 1024),
+            ('rows', (4096, 128), (2048,), 4096),
+            ('rows', (4096, 8), (RAGGED,), 4096),
+            ('axis0', (4096, 8), (RAGGED, 8), 4096),
+            ('axis1', (RAGGED, 16), (RAGGED, 8), 16))):
         add('take2d', f'{mode}_tab{tab}_idx{idx}'.replace(' ', ''),
             gather.take2d, gather.take2d_ref, randint(hi, *idx),
-            randn(*tab), mode)
+            randn(*tab), mode, row=row, cost=take2d_cost,
+            library=take2d_library)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    for n in (limit // 4, 12345):
+    for row, n in zip(('K5', None), (limit // 4, 12345)):
         add('smem_stage', f'n{n}', gather.smem_stage, gather.smem_stage_ref,
-            randn(n))
+            randn(n), row=row, cost=stage_cost,
+            library=lambda tab: lambda: tab[0] + tab[-1])
     pt_p = randn(40, 4096).to(torch.bfloat16)
     pt_mu = randn(20, 8192).to(torch.bfloat16)
-    for b in (BATCH, RAGGED):
+    for row, b in zip(('K7_pair', None), (BATCH, RAGGED)):
         add('phase_pair_bf16', f'bf16_40x4096_20x8192_B{b}', phase_pair,
-            phase_pair_ref, *lane_inputs(rng, b, pt_p, pt_mu, dev))
+            phase_pair_ref, *lane_inputs(rng, b, pt_p, pt_mu, dev), row=row,
+            cost=pair_cost)
     return cases
 
 
-def lane_inputs(rng, b, pt_p, pt_mu, dev):
+def lane_inputs(rng, b, pt_p, pt_mu, dev, offset=0):
+    """Random lanes of the phase pair; ``offset`` > 0 returns views that
+    start that many elements into their allocation (off 16-byte
+    alignment for offsets that are not multiples of 4)."""
     npf = pt_mu.shape[0]
-    apf = rng.integers(0, npf, b).astype(np.int32)
-    first = rng.integers(0, 2, b).astype(bool)
+    n = b + offset
+    apf = rng.integers(0, npf, n).astype(np.int32)
+    first = rng.integers(0, 2, n).astype(bool)
     row_e = (apf + np.where(first, npf, 0)).astype(np.int32)
-    mu = rng.uniform(-1, 1, b).astype(np.float32)
-    u = rng.uniform(1e-7, 1 - 1e-7, b).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (apf, row_e, mu, u)] \
+    mu = rng.uniform(-1, 1, n).astype(np.float32)
+    u = rng.uniform(1e-7, 1 - 1e-7, n).astype(np.float32)
+    return [torch.from_numpy(a).to(dev)[offset:] for a in (apf, row_e, mu, u)] \
         + [pt_p, pt_mu]
 
 
@@ -266,28 +388,38 @@ def run(args, dev):
         f'built in {report["scene_build_s"]:.1f} s')
 
     # ---- 3. kernel phase ----
+    floor_ms = device_ms(lambda: gather.noop(dev))
+    report['floor_ms'] = floor_ms
+    log(f'# launch floor (empty kernel, one 256-thread block): '
+        f'{floor_ms * 1e3:.3f} us')
     rng = np.random.default_rng(args.seed)
-    b = 1 << 17
-    bench_args = lane_inputs(rng, b, scene.pt_p, scene.pt_mu, dev)
     big_p = torch.from_numpy(
         (rng.normal(size=(40, 2048)) * 10).astype(np.float32)).to(dev)
     big_mu = torch.from_numpy(
         rng.uniform(-1, 1, (20, 2048)).astype(np.float32)).to(dev)
-    big_args = lane_inputs(rng, b, big_p, big_mu, dev)
-    ragged_args = lane_inputs(rng, 100_003, big_p, big_mu, dev)
     max_err = 0.0
     kt = {}
-    for name, a, timed in (('bench_tables', bench_args, True),
-                           ('20_rows', big_args, True),
-                           ('20_rows_ragged_B100003', ragged_args, False)):
+    for name, a, timed in (
+            ('bench_tables', lane_inputs(rng, BATCH, scene.pt_p,
+                                         scene.pt_mu, dev), True),
+            ('20_rows', lane_inputs(rng, BATCH, big_p, big_mu, dev), True),
+            (f'20_rows_ragged_B{RAGGED}',
+             lane_inputs(rng, RAGGED, big_p, big_mu, dev), False),
+            ('20_rows_misaligned',
+             lane_inputs(rng, BATCH - 1, big_p, big_mu, dev, offset=1),
+             False)):
         err, same = compare(phase_pair(*a), phase_pair_ref(*a))
         max_err = max(max_err, err)
         check(same, f'phase_pair kernel != plain on {name}: max |diff| {err}')
         if timed:
-            kt[name] = dict(ms=device_ms(lambda: phase_pair(*a)),
-                            plain_ms=device_ms(lambda: phase_pair_ref(*a)))
+            kt[name] = time_case(dict(
+                case=name, kern=lambda: phase_pair(*a),
+                plain=lambda: phase_pair_ref(*a),
+                cost=lambda: pair_cost(*a)), floor_ms)
         log(f'# phase_pair {name}: bitwise equal; {kt.get(name, "")}')
     report['phase_pair'] = kt
+    # the timed case of each TPU kernel of the PERF.md table
+    rows = {'K1': dict(kernel='phase_pair', **kt['bench_tables'])}
 
     # ---- 4. main path ----
     cfg = SolverConfig(target='radiance', batch=BATCH, n_scat_max=600,
@@ -307,20 +439,20 @@ def run(args, dev):
     mc_flight.phase_pair = capture
     try:
         t0 = time.perf_counter()
-        warm = mc_flight.run_transport_flight(scene, st, cfg, 100_000,
+        warm = mc_flight.run_transport_flight(scene, st, cfg, WARM_PHOTONS,
                                               args.seed + 1, dev, rad_w=rad_w)
         torch.cuda.synchronize()
         report['warmup_s'] = time.perf_counter() - t0
     finally:
         mc_flight.phase_pair = plain_pair
-    check(int(warm.n_launched) == 100_000, 'warm-up launched count')
+    check(int(warm.n_launched) == WARM_PHOTONS, 'warm-up launched count')
     for i, a in enumerate(captured):
         err, same = compare(phase_pair(*a), phase_pair_ref(*a))
         max_err = max(max_err, err)
         check(same, f'phase_pair kernel != plain on captured flight inputs '
               f'#{i}: max |diff| {err}')
-    log(f'# warm-up 1e5 photons {report["warmup_s"]:.2f} s; kernel bitwise '
-        f'equal on {len(captured)} captured flight steps '
+    log(f'# warm-up {WARM_PHOTONS:.0e} photons {report["warmup_s"]:.2f} s; '
+        f'kernel bitwise equal on {len(captured)} captured flight steps '
         f'(B={[int(a[0].shape[0]) for a in captured]})')
 
     n_ph = PHOTONS
@@ -333,6 +465,7 @@ def run(args, dev):
     img = tal.rad.cpu().numpy()
     wall = time.perf_counter() - t0
     launches = phase_pair.launches
+    main_counts = launch_counts()
     steps = int(tal.n_steps)
     n_l = int(tal.n_launched)
     check(n_l == n_ph, f'launched {n_l} photons of {n_ph}')
@@ -350,7 +483,7 @@ def run(args, dev):
                 g_samples_per_s=n_l * st.ng / wall, steps=steps,
                 lane_iters=float(tal.lane_iters), ms_per_step=1e3 * wall / steps,
                 stage_steps=stats['stage_steps'],
-                phase_pair_launches=launches,
+                phase_pair_launches=launches, launches=main_counts,
                 host_read_s=stats['host_read_s'],
                 host_read_share=stats['host_read_s'] / wall,
                 domain_mean=mean, ref_mean=REF_MEAN, tol=tol,
@@ -367,7 +500,7 @@ def run(args, dev):
     # ---- 5. front door ----
     t0 = time.perf_counter()
     res = solve(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
-                photons=1e6, n_run=2, batch=BATCH, tile_size=16,
+                photons=SOLVE_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
                 qmc_launch=True, n_scat_max=600, seed=args.seed + 3,
                 device=dev)
     rad = np.asarray(res['rad'])
@@ -384,17 +517,18 @@ def run(args, dev):
     gen.manual_seed(args.seed)
     probe_err = dict.fromkeys(PROBE_KERNELS, 0.0)
     probe_kt = {}
-    for kernel, case, kern, plain in probe_kernel_cases(rng, dev, gen):
-        err, same = compare(kern(), plain())
+    for c in probe_kernel_cases(rng, dev, gen):
+        kernel = c['kernel']
+        err, same = compare(c['kern'](), c['plain']())
         probe_err[kernel] = max(probe_err[kernel], err)
-        check(same, f'{kernel} kernel != plain on {case}: max |diff| {err}')
-        timed = kernel not in probe_kt
-        if timed:
-            probe_kt[kernel] = dict(case=case, ms=device_ms(kern),
-                                    plain_ms=device_ms(plain))
-        log(f'# {kernel} {case}: bitwise equal; '
-            f'{probe_kt[kernel] if timed else ""}')
-    report['probe_kernels'] = probe_kt
+        check(same, f'{kernel} kernel != plain on {c["case"]}: max |diff| '
+                    f'{err}')
+        t = ''
+        if c['row']:
+            t = rows[c['row']] = dict(kernel=kernel, **time_case(c, floor_ms))
+            probe_kt.setdefault(kernel, t)
+        log(f'# {kernel} {c["case"]}: bitwise equal; {t}')
+    report.update(probe_kernels=probe_kt, rows=rows)
 
     # the probe path, its launch counts from 0
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
@@ -418,15 +552,17 @@ def run(args, dev):
           f'shared memory ceiling {ceiling[-2:]} is not the opt-in limit '
           f'{limit} B')
 
-    bt = kt['bench_tables']
-    kernels = {'kernels': [dict(
-        name='phase_pair', route='cuda', source=PP_SOURCE,
-        replaces=PP_REPLACES, launches=launches, max_abs_err=max_err,
-        ms=bt['ms'], plain_ms=bt['plain_ms'])] + [dict(
-            name=name, route='cuda', source=source, replaces=replaces,
-            launches=probe_counts[name], max_abs_err=probe_err[name],
-            ms=probe_kt[name]['ms'], plain_ms=probe_kt[name]['plain_ms'])
-            for name, (source, replaces) in PROBE_KERNELS.items()]}
+    def entry(name, source, replaces, n, err, t):
+        return dict(name=name, route='cuda', source=source,
+                    replaces=replaces, launches=n, max_abs_err=err,
+                    ms=t['ms'], plain_ms=t['plain_ms'],
+                    bound_ms=t['bound_ms'], bound_by=t['bound_by'],
+                    library_ms=t['library_ms'], floor_ms=t['floor_ms'])
+    kernels = {'kernels': [entry('phase_pair', PP_SOURCE, PP_REPLACES,
+                                 launches, max_err, kt['bench_tables'])] + [
+        entry(name, source, replaces, probe_counts[name], probe_err[name],
+              probe_kt[name])
+        for name, (source, replaces) in PROBE_KERNELS.items()]}
     report['kernels'] = kernels
     os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)
     with open(OUT_JSON, 'w') as f:

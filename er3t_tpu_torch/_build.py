@@ -45,6 +45,7 @@ KERNELS = {
     'take2d': ('gather_probe.cu', 'er3t_take2d',
                [_c, _c, _c, _i, _i, _i, _i, _i, _c]),
     'smem_stage': ('gather_probe.cu', 'er3t_smem_stage', [_c, _c, _i, _c]),
+    'noop': ('gather_probe.cu', 'er3t_noop', [_c]),
 }
 
 _loaded: dict = {}                      # kernel name -> ctypes function

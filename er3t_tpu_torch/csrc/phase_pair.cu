@@ -2,22 +2,30 @@
 //
 // Replaces er3t_tpu/rtm/pallas_phase.py:phase_pair (the TPU form: one-hot
 // MXU row selection over two-plane bf16 tables plus a 128-lane shuffle).
-// Here each thread serves one photon lane and reads the two f32 values
-// straight from the tables, so the result is exact f32 — bit for bit the
-// plain PyTorch version er3t_tpu_torch.rtm.phase_pair.phase_pair_ref, which
-// follows the reference's f32 XLA path (mc_flight.py:351-360).
+// Here each lane's two f32 values are read straight from the tables, so the
+// result is exact f32 — bit for bit the plain PyTorch version
+// er3t_tpu_torch.rtm.phase_pair.phase_pair_ref, which follows the
+// reference's f32 XLA path (mc_flight.py:351-360).
 //
 //   pe[i] = pt_p [row_e[i], clip(int(((mu[i] + 1) * 0.5) * (n_m - 1) + 0.5))]
 //   mn[i] = pt_mu[apf[i],   clip(int(u[i] * (n_u - 1) + 0.5))]
 //
-// Bound: latency of random loads.  Per lane it moves 16 B in (apf, row_e,
-// mu, u) and 8 B out, all coalesced, plus two dependent table loads whose
-// address comes from data.  The tables are small (48 KB at the bench scene,
-// up to ~490 KB with all 20 Mie rows, beyond a block's 227 KB of shared
-// memory), so they are read through the read-only path (__ldg) and live in
-// L1/L2 after the first touches; no staging.  The index loads of all lanes
-// are independent, so many resident warps (one thread per lane, 256-thread
-// blocks, ragged last block masked) hide the dependent-load latency.
+// Bound: bytes.  Per lane 16 B in (apf, row_e, mu, u) and 8 B out, read and
+// written once: 3.15 MB at B = 2^17, 0.94 us at 3.35 TB/s; the tables (48 KB
+// at the bench scene, ~490 KB with all 20 Mie rows) count once.  What holds
+// it back on the card is not those bytes but latency: a lane's two table
+// loads can only start once its lane data has arrived, so every launch is
+// a chain of dependent round trips (lane loads, table loads, stores) behind
+// the launch itself.
+//
+// The design is one thread per lane in 256-thread blocks, the lane data and
+// the tables read through the read-only path (__ldg), the tables from
+// L1/L2, any B (the ragged last block masked).  Two designs for Hopper were
+// measured against it at the bench scene's tables and lost (PERF.md): 4
+// lanes per thread with 16-byte streaming lane loads and stores (more bytes
+// per instruction do not shorten the chain), and a persistent grid that
+// stages both tables in shared memory with the bulk copy of smem_stage (one
+// more round trip in front of the lookups).
 //
 // The bin index arithmetic uses __fmul_rn/__fadd_rn: nvcc would otherwise
 // contract a*b+c into one FMA, and a lane at a bin edge would then pick the

@@ -20,7 +20,7 @@ from .._build import launch
 
 __all__ = ['take_reps', 'take_reps_ref', 'gather_row_sum',
            'gather_row_sum_ref', 'take2d', 'take2d_ref', 'smem_stage',
-           'smem_stage_ref', 'TAKE2D_MODES']
+           'smem_stage_ref', 'noop', 'TAKE2D_MODES']
 
 TAKE2D_MODES = ('rows', 'axis0', 'axis1')
 _MAX = 2 ** 30          # every size a kernel indexes with 32-bit ints
@@ -156,13 +156,18 @@ def smem_stage_ref(tab):
 
 def smem_stage(tab):
     """K5 on an (n,) f32 ``tab``: one block stages the whole table in
-    shared memory and returns ``tab[0] + tab[n - 1]`` from it.  Above the
-    card's opt-in shared memory per block the entry point is refused and
-    this raises :class:`er3t_tpu_torch._build.CudaError`."""
+    shared memory with bulk copies and returns ``tab[0] + tab[n - 1]`` from
+    it.  The table must start at a 16-byte aligned address (the bulk copy
+    needs it; a view that does not raises ``ValueError``, on any device).
+    Above the card's opt-in shared memory per block the entry point is
+    refused and this raises :class:`er3t_tpu_torch._build.CudaError`."""
     dev = tab.device
     _check('smem_stage', dev, tab=(tab, torch.float32, (1,)))
     if tab.numel() * 4 >= 2 ** 31:
         raise ValueError('smem_stage: table must be below 2 GiB')
+    if tab.data_ptr() % 16:
+        raise ValueError('smem_stage: table must start at a 16-byte aligned '
+                         'address')
     if dev.type == 'cpu':
         return smem_stage_ref(tab)
     out = torch.empty(1, dtype=torch.float32, device=dev)
@@ -171,7 +176,21 @@ def smem_stage(tab):
     return out
 
 
+# ---- the launch floor ----
+
+def noop(dev):
+    """Launch the empty kernel (one 256-thread block) on CUDA device
+    ``dev``: its time is the launch floor every kernel's time is read
+    against.  Nothing to do on the CPU."""
+    dev = torch.device(dev)
+    if dev.type == 'cuda':
+        _launch(noop, 'noop', dev)
+    elif dev.type != 'cpu':
+        raise ValueError(f'noop: no kernel for device {dev}')
+
+
 take_reps.launches = 0
 gather_row_sum.launches = 0
 take2d.launches = 0
 smem_stage.launches = 0
+noop.launches = 0

@@ -628,8 +628,9 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
 
 def run_transport_flight(scene: SceneArrays, static: SceneStatic,
                          cfg: SolverConfig, n_photon: int, seed: int,
-                         device, rad_w=None, stats=None) -> Tallies:
-    """Entry point: one run on ``device`` with a fresh generator seeded by
+                         device='cuda', rad_w=None, stats=None) -> Tallies:
+    """Entry point: one run on ``device`` (the card unless the caller asks
+    for the CPU; the scene must be there) with a fresh generator seeded by
     ``seed``.  ``rad_w``: optional (Ng,) spectral factors; image deposits
     are then contracted over g in the step, and ``Tallies.rad`` has a
     singleton g axis.  ``stats``: see :func:`transport_flight`."""

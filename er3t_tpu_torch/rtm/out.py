@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from er3t_tpu.physics.solar import sol_fac as _sol_fac
+from ..physics.solar import sol_fac as _sol_fac
 
 __all__ = ['spectral_factors', 'reduce_radiance']
 

@@ -10,7 +10,10 @@ JAX ``SceneArrays``) into the port leaf by leaf, which is how the tests run
 one scene through both packages.
 
 The NumPy body is duplicated from the reference because importing
-``er3t_tpu.rtm.scene`` imports JAX; see the physical-model notes there.
+``er3t_tpu.rtm.scene`` imports JAX; see the physical-model notes there.  It
+runs on the port's own copies of the preprocessing (``er3t_tpu_torch.pre``,
+``.physics``, ``.util``) and takes the inputs duck-typed, so the reference's
+``er3t_tpu.pre`` objects give the same scene as the port's.
 """
 
 from __future__ import annotations
@@ -21,10 +24,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from er3t_tpu.pre.pha import PhaseTable, build_phase_table
-from er3t_tpu.pre.sfc import SFC_LAMBERTIAN, Surface, sfc_lambertian
-from er3t_tpu.physics.rayleigh import rayleigh_od
-from er3t_tpu.util.grid import get_lay_index
+from ..physics.rayleigh import rayleigh_od
+from ..pre.pha import PhaseTable, build_phase_table, pha_hg
+from ..pre.sfc import SFC_LAMBERTIAN, sfc_lambertian
+from ..util.grid import get_lay_index
 
 __all__ = ['SceneArrays', 'SceneStatic', 'build_scene', 'scene_from_numpy']
 
@@ -149,7 +152,6 @@ def _build_numpy(atm, abs_coef, cld, pha, aer_1ds, aer_3ds, surface,
     pb = {} if phase_bins is None else {'n_u': int(phase_bins),
                                         'n_m': int(phase_bins)}
     if pha is None:
-        from er3t_tpu.pre.pha import pha_hg
         asy_rows = [0.85] + extra_asy
         table = build_phase_table(pha_hg(asy_params=tuple(asy_rows)),
                                   forward_trunc_deg=forward_trunc_deg, **pb)
@@ -157,7 +159,6 @@ def _build_numpy(atm, abs_coef, cld, pha, aer_1ds, aer_3ds, surface,
         table = build_phase_table(pha, forward_trunc_deg=forward_trunc_deg,
                                   **pb)
         if extra_asy:
-            from er3t_tpu.pre.pha import pha_hg
             aer_tab = build_phase_table(pha_hg(asy_params=tuple(extra_asy)),
                                         **pb)
             table = PhaseTable(
@@ -252,7 +253,8 @@ def _build_numpy(atm, abs_coef, cld, pha, aer_1ds, aer_3ds, surface,
         sig_maj[iz3l:iz3l + nz3] += ext_max
     sig_maj = np.maximum(sig_maj, 1e-12).astype(np.float32)
 
-    sfc = surface if isinstance(surface, Surface) \
+    # a Surface of either package (jsfc/psfc maps), or a scalar albedo
+    sfc = surface if hasattr(surface, 'jsfc') \
         else sfc_lambertian(float(surface))
 
     sza = np.deg2rad(solar_zenith_angle)
@@ -288,10 +290,11 @@ def _build_numpy(atm, abs_coef, cld, pha, aer_1ds, aer_3ds, surface,
 def build_scene(atm, abs_coef, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
                 surface=0.03, solar_zenith_angle=30.0, solar_azimuth_angle=0.0,
                 ipa=False, forward_trunc_deg=None, pfpeak=None,
-                phase_bins=None, *, device):
-    """Assemble a scene on ``device``; parameters as the reference's
-    ``build_scene`` (``er3t_tpu/rtm/scene.py:135``).  Returns
-    (:class:`SceneArrays`, :class:`SceneStatic`)."""
+                phase_bins=None, *, device='cuda'):
+    """Assemble a scene on ``device`` (the card unless the caller asks for
+    the CPU); parameters as the reference's ``build_scene``
+    (``er3t_tpu/rtm/scene.py:135``).  Returns (:class:`SceneArrays`,
+    :class:`SceneStatic`)."""
     leaves, static = _build_numpy(
         atm, abs_coef, cld, pha, aer_1ds, aer_3ds, surface,
         solar_zenith_angle, solar_azimuth_angle, ipa, forward_trunc_deg,

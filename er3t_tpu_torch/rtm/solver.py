@@ -77,9 +77,10 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
           forward_trunc_deg=None, tile_size=0, flux_engine='flight',
           flux_kcross=4, cf_dtau=0.0, pathlength=False, split_wmax=0.0,
           rr_wmin=0.1, n_scat_max=2000, mesh=None, diffusion=0,
-          qmc_launch=False, pfpeak=None, mode='mean', *, device):
-    """Run a radiance simulation on ``device``; parameters as the
-    reference's ``solve`` (``er3t_tpu/rtm/solver.py:223``).  ``batch``
+          qmc_launch=False, pfpeak=None, mode='mean', *, device='cuda'):
+    """Run a radiance simulation on ``device`` (the card unless the caller
+    asks for the CPU); parameters as the reference's ``solve``
+    (``er3t_tpu/rtm/solver.py:223``).  ``batch``
     defaults to 2^17 lanes on a GPU and 2^14 on the CPU;
     ``flux_per_column`` has no effect on radiance, as in the reference.
     Returns a :class:`Result` with ``rad`` (Nx, Ny) and ``rad_std``."""

@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from er3t_tpu.pre.atm import atm_atmmod
-from er3t_tpu.pre.abs import abs_synthetic
-from er3t_tpu.pre.cld import cld_gen_hem
 from er3t_tpu_torch._build import CudaError
+from er3t_tpu_torch.pre.abs import abs_synthetic
+from er3t_tpu_torch.pre.atm import atm_atmmod
+from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.probes import gather
+from er3t_tpu_torch.probes.gather_probe import device_ms
 from er3t_tpu_torch.rtm import mc_flight
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import spectral_factors
@@ -186,3 +187,44 @@ def test_smem_stage_holds_the_optin_limit_and_is_refused_above(cuda):
     assert float(torch.ones(3, device=cuda).sum()) == 3.0
     assert torch.equal(gather.smem_stage(tab[:12345]),
                        gather.smem_stage_ref(tab[:12345]))
+
+
+@pytest.mark.cuda
+def test_smem_stage_refuses_a_misaligned_table(cuda):
+    """The bulk copy needs a 16-byte aligned table: a view one float in
+    raises before any launch, and never takes another path."""
+    tab = torch.randn(4096, device=cuda)
+    before = gather.smem_stage.launches
+    with pytest.raises(ValueError, match='16-byte'):
+        gather.smem_stage(tab[1:])
+    assert gather.smem_stage.launches == before
+    assert torch.equal(gather.smem_stage(tab[4:]),
+                       gather.smem_stage_ref(tab[4:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('b,offset', [(1 << 17, 0), (100_003, 0),
+                                      (1 << 17, 1), (100_003, 3)],
+                         ids=['B131072', 'B100003', 'B131072_misaligned',
+                              'B100003_misaligned'])
+def test_phase_pair_instances_equal_plain(cuda, dtype, b, offset):
+    """Both instances at B = 2^17, with a ragged last block, and on lane
+    arrays off 16-byte alignment: bitwise equal to the plain version."""
+    rng = np.random.default_rng(6)
+    a = [torch.from_numpy(x).to(cuda)
+         for x in _lanes(rng, b + offset, 20, 2048, 2048)]
+    a = [t[offset:] for t in a[:4]] + [a[4].to(dtype), a[5].to(dtype)]
+    assert offset == 0 or a[0].data_ptr() % 16
+    pe, mn = phase_pair(*a)
+    ref_pe, ref_mn = phase_pair_ref(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(pe, ref_pe) and torch.equal(mn, ref_mn)
+
+
+@pytest.mark.cuda
+def test_device_ms_of_the_launch_floor_is_finite_and_positive(cuda):
+    for per_launch in (False, True):
+        ms = device_ms(lambda: gather.noop(cuda), per_launch=per_launch)
+        assert np.isfinite(ms) and 0 < ms < 1.0

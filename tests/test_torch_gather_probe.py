@@ -462,7 +462,8 @@ def test_probe_entry_point_runs_every_experiment_on_plain_versions(
     limit = 232448
     monkeypatch.setattr(gather_probe, 'B', 1024)
     monkeypatch.setattr(gather_probe, 'K', 2)
-    monkeypatch.setattr(gather_probe, 'device_ms', lambda fn, n=30: (fn(), 1.0)[1])
+    monkeypatch.setattr(gather_probe, 'device_ms',
+                        lambda fn, n=100, per_launch=False: (fn(), 1.0)[1])
     monkeypatch.setattr(gather_probe, 'card_line', lambda: 'cpu')
     monkeypatch.setattr(torch.cuda, 'get_device_name', lambda d=None: 'cpu')
     monkeypatch.setattr(torch.cuda, 'get_device_properties', lambda d=None:
@@ -489,4 +490,46 @@ def test_probe_entry_point_runs_every_experiment_on_plain_versions(
     ceiling = [(r['bytes'], r['ok']) for r in recs
                if r['probe'] == 'vmem_ceiling']
     assert ceiling[-2:] == [(limit, True), (limit + 4, False)]
+    assert [r['kernel'] for r in recs if r['probe'] == 'timing_methods'] == [
+        'launch_floor', 'phase_pair_bench_f32', 'smem_stage_optin']
     assert capsys.readouterr().out.count('\n') == len(recs)
+
+
+def test_smem_stage_refuses_a_misaligned_table_on_any_device():
+    tab = torch.from_numpy(_rng(9).normal(size=64).astype(np.float32))
+    assert tab.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match='16-byte'):
+        gather.smem_stage(tab[1:])
+    assert torch.equal(gather.smem_stage(tab[4:]), gather.smem_stage_ref(tab[4:]))
+
+
+@pytest.mark.parametrize('kernel', ['launch_floor', 'phase_pair_bench_f32',
+                                    'smem_stage_optin'])
+def test_timing_methods_time_each_kernel_both_ways(monkeypatch, capsys,
+                                                   kernel):
+    """Each ``timing_methods`` row times its kernel amortised over 100 calls
+    and as the median of 30 per-call event pairs, and reports both; on CPU
+    tensors the kernels run their plain versions (the floor does nothing)
+    and count no launch."""
+    calls = []
+
+    def timer(fn, n=100, per_launch=False):
+        fn()
+        calls.append((n, per_launch))
+        return 2.0 if per_launch else 1.0
+    monkeypatch.setattr(gather_probe, 'B', 1024)
+    monkeypatch.setattr(gather_probe, 'device_ms', timer)
+    monkeypatch.setattr(torch.cuda, 'get_device_properties', lambda d=None:
+                        type('P', (), {'shared_memory_per_block_optin': 4096}))
+    before = (gather.noop.launches, gather.smem_stage.launches,
+              phase_pair.launches)
+    p = gather_probe._Probes(torch.device('cpu'), 0)
+    p.timing_methods()
+    rec = {r['kernel']: r for r in p.records}[kernel]
+    assert rec['probe'] == 'timing_methods'
+    assert rec['amortised_n100_ms'] == 1.0
+    assert rec['per_launch_median30_ms'] == 2.0
+    assert calls == [(100, False), (30, True)] * 3
+    assert (gather.noop.launches, gather.smem_stage.launches,
+            phase_pair.launches) == before
+    assert capsys.readouterr().out.count('\n') == 3
