@@ -24,6 +24,18 @@ Phases (any failure raises and the exit code is non-zero):
    flight step, and its domain-mean radiance must lie within
    max(1 %, 4 sigma) of the JAX reference below;
 5. front door: solve(target='radiance', ...) on the same scene;
+4b. flux path, on the same scene: (a) run_transport_flight with per-column
+   flux tallies, the crossing-count clamp flux_kcross=4 and the in-step
+   contraction flux_w, a warm-up run and then a timed run of 4e6 photons
+   with every launch count set to 0 just before; phase_pair must have
+   launched once per flight step, the TOA down-direct flux must equal
+   toa * mu0 in every column (it is deterministic), and the domain means
+   of the surface f_down and the TOA f_up must lie within max(1 %, 4
+   sigma) of the JAX reference below; (b) solve(target='heating_rate', ...)
+   (domain-average tallies and the direct absorbed-energy tally), 1e6
+   photons x 2 runs: hr finite and >= 0, its column integral within 5 % of
+   the same runs' net-flux convergence, and within max(2 %, 4 sigma) of
+   the JAX reference below;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -45,7 +57,8 @@ over 3.35 TB/s and its float operations over 67 TFLOP/s.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
-build/chip_smoke.json.
+build/chip_smoke.json.  With --profile, 20 radiance steps and 20 flux
+steps are profiled (keys "profile" and "profile_flux").
 """
 
 import argparse
@@ -67,7 +80,8 @@ from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
 from er3t_tpu_torch.rtm import mc_flight
 from er3t_tpu_torch.rtm.mc import SolverConfig
-from er3t_tpu_torch.rtm.out import reduce_radiance, spectral_factors
+from er3t_tpu_torch.rtm.out import (reduce_flux, reduce_radiance,
+                                    spectral_factors)
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
 from er3t_tpu_torch.rtm.scene import build_scene
 from er3t_tpu_torch.rtm.solver import solve
@@ -98,8 +112,79 @@ REF_RUN_MEANS = (0.05493439733982086, 0.054785072803497314,
                  0.05493566393852234, 0.05492399260401726,
                  0.054780151695013046, 0.05498918890953064)
 REF_PHOTONS = 4_000_000
-REF_MEAN = float(np.mean(REF_RUN_MEANS))
-REF_SIGMA = float(np.std(REF_RUN_MEANS, ddof=1))   # one 4e6-photon run
+
+# Domain means [W/m^2/nm] of the surface f_down and the TOA f_up of the
+# bench scene with per-column tallies, flux_kcross=4 and flux_w, computed
+# by the JAX package on the CPU (use_pallas=False, batch 2^15), one pair
+# per seed of 1e6 photons:
+FLUX_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, bench
+from er3t_tpu.rtm.mc import SolverConfig
+from er3t_tpu.rtm.mc_flight import run_transport_flight
+from er3t_tpu.rtm.out import spectral_factors, reduce_flux
+ab, scene, st = bench.build()
+cfg = SolverConfig(target='flux', batch=1 << 15, n_scat_max=600,
+                   tile_size=16, use_pallas=False, qmc_launch=True,
+                   flux_per_column=True, flux_kcross=4)
+flux_w = spectral_factors(ab, nz_out=st.nz + 1)[0]
+mu0 = float(np.cos(np.deg2rad(30.0)))
+for seed in range(8):
+    tal = run_transport_flight(scene, st, cfg, 1_000_000, seed=seed,
+                               flux_w=flux_w)
+    f = reduce_flux(np.asarray(tal.flux), int(tal.n_launched), ab, mu0,
+                    precontracted=True)
+    print(seed, f['f_down'][:, :, 0].mean(), f['f_up'][:, :, -1].mean())
+EOF"""
+FLUX_REF_RUNS = ((1.1787493, 0.2126157),
+                 (1.1787493, 0.21251403),
+                 (1.1796414, 0.21164083),
+                 (1.1788455, 0.21243094),
+                 (1.1795588, 0.21169919),
+                 (1.1799792, 0.21142687),
+                 (1.178889, 0.21243855),
+                 (1.179327, 0.21210864))
+FLUX_REF_PHOTONS = 1_000_000
+
+# Column-absorbed power [W/m^2/nm] of solve(target='heating_rate') on the
+# bench scene (domain-average tallies, direct absorbed-energy tally),
+# computed by the JAX package on the CPU (batch 2^15), one per run of 1e6
+# photons:
+HR_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np
+from er3t_tpu.pre.atm import atm_atmmod
+from er3t_tpu.pre.abs import abs_synthetic
+from er3t_tpu.pre.cld import cld_gen_hem
+from er3t_tpu.pre.pha import pha_mie_wc
+from er3t_tpu.rtm.solver import solve
+levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
+atm = atm_atmmod(levels)
+ab = abs_synthetic(650.0, atm)
+cld = cld_gen_hem(nx=480, ny=480, nz=4, dx=0.1, dy=0.1, dz=0.5,
+                  cloud_frac_tgt=0.25, radii=(0.5, 1.0, 2.0),
+                  cot_scale=15.0, cloud_base=0.5, seed=7)
+res = solve(atm=atm, abs_coef=ab, cld=cld, pha=pha_mie_wc(650.0),
+            surface=0.03, solar_zenith_angle=30.0, solar_azimuth_angle=45.0,
+            forward_trunc_deg=25.0, target='heating_rate', photons=1e6,
+            n_run=8, batch=1 << 15, tile_size=16, qmc_launch=True,
+            n_scat_max=600, seed=0, mode='all')
+heat = atm.lay.pressure * 100.0 / (287.0 * atm.lay.temperature) * 1004.0 \\
+    * atm.lay.thickness * 1000.0
+for r in res.runs:
+    print(float(np.sum(r['hr'] / 86400.0 * heat)))
+EOF"""
+HR_REF_RUNS = (0.02967642165666477,
+               0.029681022627743085,
+               0.029669266275767152,
+               0.029648136216414926,
+               0.029660190419398165,
+               0.029700160538058684,
+               0.029724452824110445,
+               0.029721125940496265)
+HR_REF_PHOTONS = 1_000_000
 
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
@@ -124,6 +209,8 @@ RAGGED = 100_003                 # a lane count no block size divides
 PHOTONS = 4_000_000              # photons of the timed main-path run
 WARM_PHOTONS = 100_000           # photons of the warm-up run
 SOLVE_PHOTONS = 1_000_000        # photons per run of the front door
+FLUX_PHOTONS = 4_000_000         # photons of the timed flux-path run
+HR_PHOTONS = 1_000_000           # photons per run of the heating-rate solve
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, HBM3
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 outside the
                                  # tensor cores
@@ -239,6 +326,21 @@ def row_sum_library(idx, tab):
     """One PyTorch call for gather_row_sum: an embedding bag of one row."""
     i64 = idx.long().reshape(-1, 1)
     return lambda: F.embedding_bag(i64, tab, mode='sum')
+
+
+def against_ref(what, got, runs, ref_photons, photons, rel):
+    """Check ``got`` (a mean over ``photons`` photons in all) against the
+    mean of the JAX reference's per-run values ``runs`` (``ref_photons``
+    each): within max(rel, 4 sigma), sigma from the runs' spread scaled to
+    both photon counts."""
+    ref = float(np.mean(runs))
+    sd = float(np.std(runs, ddof=1))
+    sigma = float(np.hypot(sd * np.sqrt(ref_photons / photons),
+                           sd / np.sqrt(len(runs))))
+    tol = max(rel * abs(ref), 4 * sigma)
+    check(abs(got - ref) <= tol, f'{what} {got:.6g} is not within {tol:.3g} '
+                                 f'of the JAX reference {ref:.6g}')
+    return dict(value=got, ref=ref, tol=tol, rel_diff=got / ref - 1)
 
 
 def bound(cost):
@@ -476,9 +578,8 @@ def run(args, dev):
           f'phase_pair launched {launches} times in {steps} steps')
     mean = float(reduce_radiance(img, n_l, ab, mu0,
                                  precontracted=True)['rad'].mean())
-    sigma = float(np.hypot(REF_SIGMA * np.sqrt(REF_PHOTONS / n_ph),
-                           REF_SIGMA / np.sqrt(len(REF_RUN_MEANS))))
-    tol = max(0.01 * REF_MEAN, 4 * sigma)
+    ref = against_ref('domain-mean radiance', mean, REF_RUN_MEANS,
+                      REF_PHOTONS, n_ph, 0.01)
     main = dict(photons=n_l, wall_s=wall, photons_per_s=n_l / wall,
                 g_samples_per_s=n_l * st.ng / wall, steps=steps,
                 lane_iters=float(tal.lane_iters), ms_per_step=1e3 * wall / steps,
@@ -486,16 +587,13 @@ def run(args, dev):
                 phase_pair_launches=launches, launches=main_counts,
                 host_read_s=stats['host_read_s'],
                 host_read_share=stats['host_read_s'] / wall,
-                domain_mean=mean, ref_mean=REF_MEAN, tol=tol,
-                rel_diff=mean / REF_MEAN - 1)
+                domain_mean=mean, ref_mean=ref['ref'], tol=ref['tol'],
+                rel_diff=ref['rel_diff'])
     report['main'] = main
     log('# main path: ' + json.dumps(main))
-    check(abs(mean - REF_MEAN) <= tol,
-          f'domain-mean radiance {mean:.6g} is not within {tol:.3g} of the '
-          f'JAX reference {REF_MEAN:.6g}')
 
     if args.profile:
-        report['profile'] = profile_steps(scene, st, cfg, rad_w, dev)
+        report['profile'] = profile_steps(scene, st, cfg, dev, rad_w=rad_w)
 
     # ---- 5. front door ----
     t0 = time.perf_counter()
@@ -511,6 +609,9 @@ def run(args, dev):
                            domain_mean=float(rad.mean()),
                            n_photon_effective=res.n_photon_effective)
     log('# solve: ' + json.dumps(report['solve']))
+
+    # ---- 4b. flux path ----
+    flux_phase(args, dev, atm, ab, scene_kw, scene, st, report)
 
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
@@ -558,8 +659,10 @@ def run(args, dev):
                     ms=t['ms'], plain_ms=t['plain_ms'],
                     bound_ms=t['bound_ms'], bound_by=t['bound_by'],
                     library_ms=t['library_ms'], floor_ms=t['floor_ms'])
-    kernels = {'kernels': [entry('phase_pair', PP_SOURCE, PP_REPLACES,
-                                 launches, max_err, kt['bench_tables'])] + [
+    pp_entry = entry('phase_pair', PP_SOURCE, PP_REPLACES, launches, max_err,
+                     kt['bench_tables'])
+    pp_entry['flux_launches'] = report['flux']['phase_pair_launches']
+    kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name])
         for name, (source, replaces) in PROBE_KERNELS.items()]}
@@ -575,11 +678,101 @@ def run(args, dev):
     return 0
 
 
-def profile_steps(scene, st, cfg, rad_w, dev):
+def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
+    """Phase 4b: the flux path of the flight kernel and the heating-rate
+    front door on the bench scene (see the module docstring)."""
+    cfg = SolverConfig(target='flux', batch=BATCH, n_scat_max=600,
+                       tile_size=16, use_pallas=True, qmc_launch=True,
+                       flux_per_column=True, flux_kcross=4)
+    factors, toa = spectral_factors(ab, nz_out=st.nz + 1)
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+    t0 = time.perf_counter()
+    warm = mc_flight.run_transport_flight(scene, st, cfg, WARM_PHOTONS,
+                                          args.seed + 4, dev, flux_w=factors)
+    torch.cuda.synchronize()
+    check(int(warm.n_launched) == WARM_PHOTONS, 'flux warm-up launched count')
+    log(f'# flux warm-up {WARM_PHOTONS:.0e} photons '
+        f'{time.perf_counter() - t0:.2f} s')
+
+    n_ph = FLUX_PHOTONS
+    stats = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph, args.seed + 5,
+                                         dev, flux_w=factors, stats=stats)
+    tally = tal.flux.cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = int(tal.n_steps)
+    n_l = int(tal.n_launched)
+    check(n_l == n_ph, f'flux path launched {n_l} photons of {n_ph}')
+    check(tally.shape == (st.nx, st.ny, st.nz + 1, 3, 1),
+          f'flux tally shape {tally.shape}')
+    check(np.isfinite(tally).all() and (tally >= 0).all(),
+          'flux tally not finite and >= 0')
+    check(counts['phase_pair'] == steps,
+          f'phase_pair launched {counts["phase_pair"]} times in {steps} '
+          f'flux steps')
+    red = reduce_flux(tally, n_l, ab, mu0, precontracted=True)
+    toa_err = float(np.max(np.abs(red['f_down_direct'][:, :, -1]
+                                  / (toa * mu0) - 1)))
+    check(toa_err <= 1e-5, f'TOA down-direct flux off toa * mu0 by {toa_err}')
+    ref_sfc, ref_toa = zip(*FLUX_REF_RUNS)
+    report['flux'] = dict(
+        photons=n_l, wall_s=wall, photons_per_s=n_l / wall,
+        g_samples_per_s=n_l * st.ng / wall, steps=steps,
+        lane_iters=float(tal.lane_iters), ms_per_step=1e3 * wall / steps,
+        stage_steps=stats['stage_steps'],
+        phase_pair_launches=counts['phase_pair'], launches=counts,
+        host_read_s=stats['host_read_s'],
+        host_read_share=stats['host_read_s'] / wall,
+        toa_direct_max_rel_err=toa_err,
+        f_down_sfc=against_ref('domain-mean surface f_down',
+                               float(red['f_down'][:, :, 0].mean()),
+                               ref_sfc, FLUX_REF_PHOTONS, n_ph, 0.01),
+        f_up_toa=against_ref('domain-mean TOA f_up',
+                             float(red['f_up'][:, :, -1].mean()),
+                             ref_toa, FLUX_REF_PHOTONS, n_ph, 0.01))
+    log('# flux path: ' + json.dumps(report['flux']))
+    if args.profile:
+        report['profile_flux'] = profile_steps(scene, st, cfg, dev,
+                                               flux_w=factors)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(atm=atm, abs_coef=ab, **scene_kw, target='heating_rate',
+                photons=HR_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
+                qmc_launch=True, n_scat_max=600, seed=args.seed + 6,
+                device=dev)
+    wall = time.perf_counter() - t0
+    hr = np.asarray(res['hr'])
+    check(hr.shape == (st.nz,) and np.isfinite(hr).all()
+          and (hr >= -1e-9).all(), 'solve: hr not a finite (nz,) profile '
+                                   '>= 0')
+    heat = atm.lay.pressure * 100.0 / (287.0 * atm.lay.temperature) \
+        * 1004.0 * atm.lay.thickness * 1000.0
+    col = float(np.sum(hr / 86400.0 * heat))
+    net = res['f_down'][0, 0] - res['f_up'][0, 0]
+    conv = float(net[-1] - net[0])
+    check(abs(col / conv - 1) <= 0.05,
+          f'heating rate column {col:.6g} vs net-flux convergence {conv:.6g}')
+    report['heating_rate'] = dict(
+        wall_s=wall, n_photon_effective=res.n_photon_effective,
+        launches=launch_counts(), hr=hr.tolist(), net_flux_convergence=conv,
+        closure_rel_diff=col / conv - 1,
+        column_absorbed=against_ref('column-absorbed power', col,
+                                    HR_REF_RUNS, HR_REF_PHOTONS,
+                                    2 * HR_PHOTONS, 0.02))
+    log('# heating rate: ' + json.dumps(report['heating_rate']))
+
+
+def profile_steps(scene, st, cfg, dev, rad_w=None, flux_w=None):
     """Device time by kernel over 20 flight steps at B = 2^17 (after 30
     warm steps), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    kern = mc_flight.FlightKernel(scene, st, cfg, 10 ** 9, rad_w=rad_w)
+    kern = mc_flight.FlightKernel(scene, st, cfg, 10 ** 9, rad_w=rad_w,
+                                  flux_w=flux_w)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     c = kern.carry0(cfg.batch)
@@ -610,8 +803,8 @@ def profile_steps(scene, st, cfg, rad_w, dev):
                kernels_per_step=sum(r[2] for r in rows) / 20,
                top=[dict(name=k[:80], ms_per_step=d / 1e3 / 20, calls=n)
                     for d, k, n in rows[:15]])
-    log('# profile: ' + json.dumps({k: v for k, v in out.items()
-                                    if k != 'top'}))
+    log(f'# profile ({cfg.target}): ' + json.dumps(
+        {k: v for k, v in out.items() if k != 'top'}))
     for r in out['top']:
         log(f'#   {r["ms_per_step"]:.4f} ms/step  x{r["calls"]}  {r["name"]}')
     return out

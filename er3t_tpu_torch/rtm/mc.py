@@ -5,7 +5,8 @@
 form, so one set of keyword arguments configures both packages; only the
 profiling knob ``ablate`` is left out.  The field docs are abridged here —
 the reference module carries the full notes.  The event-marching
-``transport`` of the reference is not ported yet (ROADMAP A11).
+``transport`` of the reference is not ported yet (ROADMAP A11): flux
+targets run the flight engine, and ``flux_engine='marching'`` raises.
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ class SolverConfig:
     #                                     reference; the port's phase-pair
     #                                     lookup is exact f32 either way
     cf_dtau: float = 0.0               # >0: collision forcing threshold
-    flux_engine: str = 'flight'        # 'flight' | 'marching'
-    flux_kcross: int = 4               # per-column flux crossing clamp
+    flux_engine: str = 'flight'        # 'flight' ('marching': ROADMAP A11)
+    flux_kcross: int = 4               # per-column flux crossing clamp:
+    #                                     at most this many level crossings
+    #                                     per flight (0: no clamp)
     tile_size: int = 0                 # >0: per-tile scattering majorants
     split_wmax: float = 0.0            # >0: weight-window splitting
     cam_xpos: float = 0.5              # camera position, domain fractions
@@ -63,12 +66,16 @@ class SolverConfig:
 class Tallies(NamedTuple):
     """Raw transport tallies, in photon-weight units (torch tensors)."""
     rad: torch.Tensor             # (Nxr, Nyr, Ng), or (Nxr, Nyr, 1) with rad_w
-    flux: torch.Tensor            # (Nxf, Nyf, Nz+1, 3, Ng)
+    flux: torch.Tensor            # (Nxf, Nyf, Nz+1, 3, Ng) level crossings,
+    #                               channels (down-direct, down-diffuse, up);
+    #                               (..., 1) with flux_w; zeros for radiance
     n_launched: torch.Tensor      # () int64
     n_steps: torch.Tensor         # () int64 loop steps
     rad_plen: torch.Tensor        # pathlength-weighted radiance (unused: 0)
     lane_iters: torch.Tensor      # () float64 sum over steps of batch width
-    absorbed: torch.Tensor        # (Nz, Ng) absorbed-energy tally (unused)
+    absorbed: torch.Tensor        # (Nz, Ng) direct absorbed-energy tally of
+    #                               domain-average flux runs (MCARaTS
+    #                               Flx_mhrt), else (1, 1) zeros
 
 
 def _sensor_dir(cfg: SolverConfig):

@@ -1,12 +1,13 @@
-"""Flight-based radiance transport (port of ``er3t_tpu/rtm/mc_flight.py``,
-radiance/satellite branch).
+"""Flight-based transport (port of ``er3t_tpu/rtm/mc_flight.py``: the
+satellite-radiance and the flux branches).
 
 A batch of B photon lanes advances in lock-step; every step each live lane
 flies analytically through the layered (per-tile) majorant to its next
-tentative collision, deposits a local estimate toward the satellite, and
-scatters or reflects; dead lanes respawn from the remaining budget.  The
-physics and the operation order are the reference's (see the design notes
-there); what differs is the execution shape:
+tentative collision, deposits a local estimate toward the satellite
+(radiance) or tallies every level it crosses (flux), and scatters or
+reflects; dead lanes respawn from the remaining budget.  The physics and
+the operation order are the reference's (see the design notes there); what
+differs is the execution shape:
 
 * :meth:`FlightKernel.step` is one loop body as a plain function of
   ``(carry, u, q_off)``: it draws nothing itself.  The loop draws the
@@ -17,12 +18,18 @@ there); what differs is the execution shape:
 * drain compaction permutes each lane field with one alive-first stable
   ``argsort``; no f32 lane-matrix packing is needed.
 * the phase-table pair lookup goes through :func:`~.phase_pair.phase_pair`
-  (a hand-written CUDA kernel on the card), whatever ``cfg.use_pallas``.
+  (a hand-written CUDA kernel on the card), whatever ``cfg.use_pallas`` and
+  whatever the target: the flux branch needs its sampled cosine too.
+* flux tallies are unpacked rows, ``(Nxf*Nyf*(Nz+1)*3, Ng)`` or, with
+  ``flux_w``, flat scalars; the reference's 8-fold row packing is a TPU
+  layout device.
 
-Supported: ``tile_size`` 0 or >0, ``qmc_launch``, ``rad_w`` given or not,
-any satellite sensor direction, 1D aerosols, ns3 >= 1, uniform and
-per-pixel surfaces, clear-sky scenes, ``n_scat_max``, ``rr_wmin``,
-``max_events``, ``drain_compact``.  Every other option raises
+Supported: ``target`` radiance or flux (per-column with ``flux_kcross``
+> 0 or = 0, with or without ``flux_w``; domain average with the direct
+absorbed-energy tally), ``tile_size`` 0 or >0, ``qmc_launch``, ``rad_w``
+given or not, any satellite sensor direction, 1D aerosols, ns3 >= 1,
+uniform and per-pixel surfaces, clear-sky scenes, ``n_scat_max``,
+``rr_wmin``, ``max_events``, ``drain_compact``.  Every other option raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -79,6 +86,10 @@ class FlightCarry(NamedTuple):
     launched: torch.Tensor   # () int64, on the device
     step: int                # loop steps taken
     rad: torch.Tensor        # (Nx*Ny,) with rad_w, else (Nx*Ny, Ng)
+    flux: torch.Tensor       # (Nxf*Nyf*(Nz+1)*3,) with flux_w, else
+    #                          (Nxf*Nyf*(Nz+1)*3, Ng); (1, Ng) for radiance
+    absorbed: torch.Tensor   # (Nz, Ng) direct absorbed-energy tally of
+    #                          domain-average flux runs, else (1, 1)
 
 
 _LANE_FIELDS = ('x', 'y', 'z', 'ux', 'uy', 'uz', 'wsc', 'labs', 'tau',
@@ -94,8 +105,9 @@ def _take_lanes(c: FlightCarry, idx: torch.Tensor) -> FlightCarry:
 def check_supported(cfg: SolverConfig, ipa: bool) -> None:
     """Raise ``NotImplementedError`` for an option the port lacks."""
     unported = (
-        (cfg.target != 'radiance',
-         f'target={cfg.target!r}: flux targets are ROADMAP A8'),
+        (cfg.target != 'radiance' and cfg.flux_engine != 'flight',
+         f'flux_engine={cfg.flux_engine!r}: the event-marching flux engine '
+         'is ROADMAP A11'),
         (cfg.sensor_type != 'satellite',
          f'sensor_type={cfg.sensor_type!r}: the camera is ROADMAP A9'),
         (ipa, 'IPA (independent pixels) is ROADMAP A9'),
@@ -120,10 +132,18 @@ class FlightKernel:
     The step works for any batch width, so one kernel serves every drain
     stage.  All tables live on the scene's device; scalar constants are
     Python floats holding the exact f32 values the reference uses.
+
+    Flux targets (reference :151-165): per-column tallies when
+    ``cfg.flux_per_column`` and the scene has more than one column, with
+    the crossing-count clamp when ``cfg.flux_kcross`` > 0 and then, given
+    ``flux_w`` ((Nz+1, Ng) spectral factors), one factor-contracted scalar
+    per crossing; otherwise domain-average tallies and the direct
+    absorbed-energy tally.  ``flux_w`` and ``rad_w`` are ignored where
+    the reference ignores them.
     """
 
     def __init__(self, scene: SceneArrays, st: SceneStatic,
-                 cfg: SolverConfig, n_photon: int, rad_w=None):
+                 cfg: SolverConfig, n_photon: int, rad_w=None, flux_w=None):
         check_supported(cfg, st.ipa)
         self.scene, self.st, self.cfg = scene, st, cfg
         self.n_photon = int(n_photon)
@@ -131,9 +151,19 @@ class FlightKernel:
         nz, ng = st.nz, st.ng
         self.lx = st.nx * st.dx
         self.ly = st.ny * st.dy
-        self.scalar_rad = rad_w is not None
-        self.rad_w = (None if rad_w is None else torch.as_tensor(
-            rad_w, dtype=_F, device=dev).reshape(ng))
+        self.radiance = cfg.target == 'radiance'
+        self.scalar_rad = self.radiance and rad_w is not None
+        self.rad_w = (torch.as_tensor(rad_w, dtype=_F, device=dev)
+                      .reshape(ng) if self.scalar_rad else None)
+        self.nlev = nz + 1
+        self.nxf, self.nyf = ((st.nx, st.ny) if not self.radiance
+                              and cfg.flux_per_column else (1, 1))
+        per_col = self.nxf * self.nyf > 1
+        self.tally_absorbed = not self.radiance and not per_col
+        self.kx = int(cfg.flux_kcross) if per_col else 0
+        self.scalar_flux = self.kx > 0 and flux_w is not None
+        self.flux_w = (torch.as_tensor(flux_w, dtype=_F, device=dev)
+                       .reshape(self.nlev, ng) if self.scalar_flux else None)
 
         z_lev = scene.z_lev
         self.dz_lay = z_lev[1:] - z_lev[:-1]
@@ -224,6 +254,12 @@ class FlightKernel:
         npix = self.st.nx * self.st.ny
         rad = torch.zeros((npix,) if self.scalar_rad else (npix, ng),
                           dtype=_F, device=dev)
+        n_rows = self.nxf * self.nyf * self.nlev * 3
+        flux = torch.zeros((1, ng) if self.radiance else (n_rows,)
+                           if self.scalar_flux else (n_rows, ng),
+                           dtype=_F, device=dev)
+        absorbed = torch.zeros((self.st.nz, ng) if self.tally_absorbed
+                               else (1, 1), dtype=_F, device=dev)
         return FlightCarry(
             x=z, y=z.clone(), z=z.clone(), ux=z.clone(), uy=z.clone(),
             uz=z.clone(), wsc=z.clone(),
@@ -231,7 +267,7 @@ class FlightKernel:
             tau=z.clone(), nscat=zi, alive=zb, ix0=zi.clone(),
             iy0=zi.clone(), plen=z.clone(), direct=zb.clone(),
             launched=torch.zeros((), dtype=torch.int64, device=dev), step=0,
-            rad=rad)
+            rad=rad, flux=flux, absorbed=absorbed)
 
     def _local_ix(self, x):
         return torch.clamp(torch.floor(x / self.st.dx).to(_I),
@@ -239,6 +275,15 @@ class FlightKernel:
 
     def _local_iy(self, y):
         return torch.remainder(torch.floor(y / self.st.dy).to(_I), self.st.ny)
+
+    def _column_rows(self, x, y, ux, uy, s, lev, chi):
+        """Flat per-column tally rows ``((ix*Ny + iy)*Nlev + lev)*3 + chi``
+        of the crossings at distances ``s`` (B, K) along each flight
+        (reference :781-790, 885-895)."""
+        xc = torch.remainder(x[:, None] + ux[:, None] * s, self.lx)
+        yc = torch.remainder(y[:, None] + uy[:, None] * s, self.ly)
+        col = self._local_ix(xc).long() * self.st.ny + self._local_iy(yc)
+        return ((col * self.nlev + lev) * 3 + chi[:, None]).reshape(-1)
 
     @staticmethod
     def _rotate(ux, uy, uz, mu, psi):
@@ -263,16 +308,18 @@ class FlightKernel:
 
         ``u``: (14, B) f32 deviates in [1e-7, 1-1e-7]; ``q_off``: the
         stratified-launch cell offset (int or 0-d integer tensor).  Lane
-        fields are replaced by new tensors; the image ``c.rad`` is
-        accumulated IN PLACE (``index_add_``), so the returned carry shares
-        it with ``c``.  On the card that deposit runs as atomics in a
-        varying order, so images differ in the last bits from run to run.
+        fields are replaced by new tensors; the tallies ``c.rad``,
+        ``c.flux`` and ``c.absorbed`` are accumulated IN PLACE
+        (``index_add_``), so the returned carry shares them with ``c``.  On
+        the card those deposits run as atomics in a varying order, so
+        tallies differ in the last bits from run to run.
         """
         st, cfg = self.st, self.cfg
         nz, ng = st.nz, st.ng
         dx, dy, lx, ly = st.dx, st.dy, self.lx, self.ly
         sx, sy, mu_s = self.sx, self.sy, self.mu_s
         z_lev = self.scene.z_lev
+        kx = self.kx
 
         # ---------------- respawn ----------------
         dead = ~c.alive
@@ -379,11 +426,112 @@ class FlightKernel:
         else:
             tclamp = torch.zeros_like(active)
 
+        zclamp = torch.zeros_like(active)
+        if kx:
+            # crossing-count clamp (reference :625-636, 693-726): the k-th
+            # crossing of a flight is level n_le + k going up, n_below-1-k
+            # going down; a flight stops at its kx-th crossing when that
+            # lies strictly inside the flight and the domain.  The
+            # level-0 crossing of a surface-reflected flight (z exactly 0,
+            # going up, s == 0) is admitted explicitly (up0k)
+            n_below = torch.sum(z_lev[None, :] < z[:, None], dim=1)
+            n_le = torch.sum(z_lev[None, :] <= z[:, None], dim=1)
+            up0k = active & going_up & (z <= 0.0)
+            n_le = torch.where(up0k, 0, n_le)
+            k_iota = torch.arange(kx, device=z.device)
+            lev_k = torch.where(going_up[:, None], n_le[:, None] + k_iota,
+                                n_below[:, None] - 1 - k_iota)   # (B, kx)
+            lev_ok = (lev_k >= 0) & (lev_k <= nz)
+            lev_c = torch.clamp(lev_k, 0, nz)
+            z_k = z_lev[lev_c]
+            s_k = (z_k - z[:, None]) * inv_uz[:, None]
+            pos_ok = (s_k > 0.0) | (up0k[:, None] & (k_iota == 0))
+            s_zc = s_k[:, -1]
+            zclamp = active & lev_ok[:, -1] & (lev_k[:, -1] > 0) \
+                & (lev_k[:, -1] < nz) & (s_zc > 0.0) & (s_zc < s_star)
+            s_star = torch.where(zclamp, s_zc, s_star)
+            collided = collided & ~zclamp
+            tclamp = tclamp & ~zclamp
+
         # traveled path per layer, valid for collided/exit/clamped alike
         trav = torch.minimum(torch.clamp(
             torch.minimum(d_out, s_star[None, :]) - d_in, min=0.0), seg)
         trav = torch.where(active[None, :], trav, 0.0)           # (Nz, B)
-        term = active & ~collided & ~tclamp
+        term = active & ~collided & ~tclamp & ~zclamp
+
+        flux, absorbed = c.flux, c.absorbed
+        if not self.radiance:
+            # ---- level-crossing tallies (reference :739-899), from the
+            # flight's start point, with the weights before this step's
+            # absorption update ----
+            kabs = self.scene.kabs
+            trav_b = trav.T                                      # (B, Nz)
+            labs_bg = labs[:ng].T                                # (B, Ng)
+            chi = torch.where(going_up, 2, torch.where(direct, 0, 1))
+            if kx:
+                # compact tally: kx rows per lane (zclamp guarantees every
+                # crossing of the flight fits); the terminal crossing is
+                # admitted explicitly
+                final_k = (zclamp[:, None] & (k_iota == kx - 1)) \
+                    | ((term & ~going_up)[:, None] & (lev_k == 0)) \
+                    | ((term & going_up)[:, None] & (lev_k == nz))
+                tally_k = active[:, None] & lev_ok & pos_ok \
+                    & ((s_k < s_star[:, None]) | final_k)
+                # gas absorption to crossing k: the layers fully traversed
+                # before it, below lev_k going up, above it going down
+                l_iota = torch.arange(nz, device=z.device)
+                mask_k = torch.where(going_up[:, None, None],
+                                     l_iota < lev_c[:, :, None],
+                                     l_iota >= lev_c[:, :, None])
+                a_k = ((mask_k * trav_b[:, None, :]).reshape(-1, nz)
+                       @ kabs).reshape(-1, kx, ng)
+                w_k = (wsc[:, None, None]
+                       * torch.exp(labs_bg[:, None, :] - a_k)
+                       * tally_k[:, :, None])
+                pidx = self._column_rows(x, y, ux, uy, s_k, lev_c, chi)
+                if self.scalar_flux:
+                    # in-step spectral contraction: one scalar per crossing
+                    flux.index_add_(0, pidx, torch.sum(
+                        w_k * self.flux_w[lev_c], dim=2).reshape(-1))
+                else:
+                    flux.index_add_(0, pidx, w_k.reshape(-1, ng))
+            else:
+                # every crossing of the flight; the terminal surface/TOA
+                # crossing and the level-0 crossing of a surface-reflected
+                # flight are added explicitly
+                s_cross = (z_lev[None, :] - z[:, None]) * inv_uz[:, None]
+                lev = torch.arange(nz + 1, device=z.device)
+                up0 = active & going_up & (z <= 0.0)
+                crossed = (active[:, None] & (s_cross > 0.0)
+                           & (s_cross < s_star[:, None])) \
+                    | ((term & ~going_up)[:, None] & (lev == 0)) \
+                    | ((term & going_up)[:, None] & (lev == nz)) \
+                    | (up0[:, None] & (lev == 0))
+                ee = trav_b[:, :, None] * kabs                   # (B,Nz,Ng)
+                pre = torch.cumsum(ee, dim=1)
+                a_up = torch.cat([torch.zeros_like(pre[:, :1]), pre], dim=1)
+                a_dn = pre[:, -1:, :] - a_up
+                w_x = (wsc[:, None, None]
+                       * torch.exp(labs_bg[:, None, :] - torch.where(
+                           going_up[:, None, None], a_up, a_dn))
+                       * crossed[:, :, None])                    # (B,Nlev,Ng)
+                if self.tally_absorbed:
+                    # direct absorbed-energy tally (MCARaTS Flx_mhrt): per
+                    # layer, the weight at path entry minus at path exit
+                    hb = torch.where(going_up[:, None, None], a_up[:, :-1],
+                                     a_dn[:, 1:])
+                    absorbed += torch.sum(
+                        wsc[:, None, None]
+                        * torch.exp(labs_bg[:, None, :] - hb)
+                        * -torch.expm1(-ee) * active[:, None, None], dim=0)
+                    chm = torch.stack([~going_up & direct,
+                                       ~going_up & ~direct,
+                                       going_up]).to(_F)         # (3, B)
+                    flux += torch.einsum('cb,blg->lcg', chm, w_x) \
+                        .reshape(-1, ng)
+                else:
+                    flux.index_add_(0, self._column_rows(
+                        x, y, ux, uy, s_cross, lev, chi), w_x.reshape(-1, ng))
 
         x = torch.where(active, torch.remainder(x + ux * s_star, lx), x)
         y = torch.where(active, torch.remainder(y + uy * s_star, ly), y)
@@ -399,6 +547,10 @@ class FlightKernel:
                 yf + torch.sign(uy) * 1e-3 * dy, ly), y)
         z = torch.where(active, torch.clamp(z + uz * s_star, 0.0, self.z_top),
                         z)
+        if kx:
+            # crossing-count-clamped lanes stop EXACTLY on the level, so the
+            # next flight's < / <= level counts neither drop nor repeat it
+            z = torch.where(zclamp, z_k[:, -1], z)
         hit_sfc = term & ~going_up
         exit_toa = term & going_up
         z = torch.where(hit_sfc, 0.0, z)
@@ -478,7 +630,6 @@ class FlightKernel:
         row_e = apf + direct.to(_I) * self.n_pf
         pe_pair, mu_new = phase_pair(apf, row_e, mu_sc, u[5].contiguous(),
                                      self.pt_p, self.pt_mu)
-        pval = torch.where(apf == 0, 0.75 * (1.0 + mu_sc * mu_sc), pe_pair)
 
         # ---------------- local estimates ----------------
         if self.uniform_sfc:
@@ -495,25 +646,37 @@ class FlightKernel:
         jsfc_l = srow[:, 0].to(_I)
         psfc_l = srow[:, 1:]
 
-        t_sens = torch.exp(labs[:ng] - tau_sens_abs
-                           - (tau_sens_sig + tau3_above)[None, :])
-        c_vol = (wsc * ssa_ev * pval / (4.0 * math.pi * mu_s))[None, :] * t_sens
-        rho_sens = brdf_eval(jsfc_l, psfc_l, ux, uy, uz, sx, sy, mu_s)
-        c_sfc = (wsc * rho_sens)[None, :] * t_sens
-        contrib = torch.where(accept[None, :], c_vol,
-                              torch.where(hit_sfc[None, :], c_sfc, 0.0))
-        if self.scalar_rad:
-            contrib = self.rad_w @ contrib                       # (B,)
         rad = c.rad
-        if st.nx * st.ny == 1:
-            rad += torch.sum(contrib, dim=-1)
-        else:
-            # slant projection onto the TOA image plane, periodic in x, y
-            xp = torch.remainder(x - sx / mu_s * z, lx)
-            yp = torch.remainder(y - sy / mu_s * z, ly)
-            gix = torch.clamp(torch.floor(xp / dx).to(_I), 0, st.nx - 1)
-            pidx = gix.long() * st.ny + self._local_iy(yp)
-            rad.index_add_(0, pidx, contrib if self.scalar_rad else contrib.T)
+        if self.radiance:
+            pval = torch.where(apf == 0, 0.75 * (1.0 + mu_sc * mu_sc),
+                               pe_pair)
+            t_sens = torch.exp(labs[:ng] - tau_sens_abs
+                               - (tau_sens_sig + tau3_above)[None, :])
+            c_vol = (wsc * ssa_ev * pval
+                     / (4.0 * math.pi * mu_s))[None, :] * t_sens
+            rho_sens = brdf_eval(jsfc_l, psfc_l, ux, uy, uz, sx, sy, mu_s)
+            c_sfc = (wsc * rho_sens)[None, :] * t_sens
+            contrib = torch.where(accept[None, :], c_vol,
+                                  torch.where(hit_sfc[None, :], c_sfc, 0.0))
+            if self.scalar_rad:
+                contrib = self.rad_w @ contrib                   # (B,)
+            if st.nx * st.ny == 1:
+                rad += torch.sum(contrib, dim=-1)
+            else:
+                # slant projection onto the TOA image plane, periodic in x, y
+                xp = torch.remainder(x - sx / mu_s * z, lx)
+                yp = torch.remainder(y - sy / mu_s * z, ly)
+                gix = torch.clamp(torch.floor(xp / dx).to(_I), 0, st.nx - 1)
+                pidx = gix.long() * st.ny + self._local_iy(yp)
+                rad.index_add_(0, pidx,
+                               contrib if self.scalar_rad else contrib.T)
+        if self.tally_absorbed:
+            # particulate absorption at accepted collisions (reference
+            # :1214-1226): the collision layer absorbs wsc*(1-ssa), seen
+            # through the gas transmission to the collision point
+            ab_c = torch.where(accept, wsc * (1.0 - ssa_ev), 0.0)
+            absorbed.index_add_(0, l_col,
+                                (torch.exp(labs[:ng]) * ab_c[None, :]).T)
 
         # ---------------- direction updates ----------------
         psi = u[6] * (2.0 * math.pi)
@@ -542,7 +705,8 @@ class FlightKernel:
         return FlightCarry(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, wsc=wsc,
                            labs=labs, tau=tau, nscat=nscat, alive=alive,
                            ix0=ix0, iy0=iy0, plen=plen, direct=direct,
-                           launched=launched, step=c.step + 1, rad=rad)
+                           launched=launched, step=c.step + 1, rad=rad,
+                           flux=flux, absorbed=absorbed)
 
 
 def draw_deviates(gen: torch.Generator, batch: int, device) -> torch.Tensor:
@@ -554,7 +718,7 @@ def draw_deviates(gen: torch.Generator, batch: int, device) -> torch.Tensor:
 
 
 def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
-                     n_photon: int, gen: torch.Generator,
+                     n_photon: int, gen: torch.Generator, flux_w=None,
                      rad_w=None, stats: dict | None = None) -> Tallies:
     """Run ``n_photon`` photons to completion (reference :1383-1503).
 
@@ -566,9 +730,11 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     ``stats``: optional dict that receives ``host_read_s``, the wall time
     spent in the per-step read-back (it includes waiting for the device to
     finish the step), and ``stage_steps``, the steps run at the full batch
-    and in each drain stage.
+    and in each drain stage.  Flux tallies come back unpacked as (Nxf,
+    Nyf, Nz+1, 3, Ng) (Ng -> 1 with the in-step contraction) with the
+    deterministic TOA down-direct entry added (reference :1483-1497).
     """
-    kern = FlightKernel(scene, st, cfg, n_photon, rad_w=rad_w)
+    kern = FlightKernel(scene, st, cfg, n_photon, rad_w=rad_w, flux_w=flux_w)
     dev = kern.device
     n = kern.n_photon
     max_steps = cfg.max_events or (n // cfg.batch + 2) * 400
@@ -616,24 +782,36 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     if stats is not None:
         stats.update(host_read_s=host_read_s, stage_steps=stage_steps)
     ng_r = 1 if kern.scalar_rad else st.ng
+    if kern.radiance:
+        flux = torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev)
+    else:
+        flux = c.flux.reshape(kern.nxf, kern.nyf, st.nz + 1, 3, -1)
+        # deterministic TOA down-direct entry: exactly 1 per launched
+        # photon (factor-contracted with flux_w), in f32
+        toa1 = torch.sum(kern.flux_w[st.nz]) if kern.scalar_flux else 1.0
+        flux[:, :, st.nz, 0, :] += (c.launched.to(_F) * toa1
+                                    / (kern.nxf * kern.nyf))
     return Tallies(
         rad=c.rad.reshape(st.nx, st.ny, ng_r),
-        flux=torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev),
+        flux=flux,
         n_launched=c.launched,
         n_steps=torch.tensor(c.step, dtype=torch.int64),
         rad_plen=torch.zeros((), dtype=_F, device=dev),
         lane_iters=torch.tensor(float(lane_iters), dtype=torch.float64),
-        absorbed=torch.zeros((1, 1), dtype=_F, device=dev))
+        absorbed=c.absorbed)
 
 
 def run_transport_flight(scene: SceneArrays, static: SceneStatic,
                          cfg: SolverConfig, n_photon: int, seed: int,
-                         device='cuda', rad_w=None, stats=None) -> Tallies:
+                         device='cuda', flux_w=None, rad_w=None,
+                         stats=None) -> Tallies:
     """Entry point: one run on ``device`` (the card unless the caller asks
     for the CPU; the scene must be there) with a fresh generator seeded by
-    ``seed``.  ``rad_w``: optional (Ng,) spectral factors; image deposits
-    are then contracted over g in the step, and ``Tallies.rad`` has a
-    singleton g axis.  ``stats``: see :func:`transport_flight`."""
+    ``seed``.  ``flux_w``: optional (Nz+1, Ng) spectral factors; per-column
+    flux crossings (``flux_kcross`` > 0) are then contracted over g in the
+    step, and ``Tallies.flux`` has a singleton g axis.  ``rad_w``: optional
+    (Ng,) spectral factors, the same for radiance image deposits
+    (``Tallies.rad``).  ``stats``: see :func:`transport_flight`."""
     device = torch.device(device)
     if device.type == 'cuda' and device.index is None:
         device = torch.device('cuda', torch.cuda.current_device())
@@ -642,8 +820,8 @@ def run_transport_flight(scene: SceneArrays, static: SceneStatic,
             raise ValueError(f'scene.{name} is on {t.device}, not {device}')
     if device.type == 'cuda' and torch.backends.cuda.matmul.allow_tf32:
         raise ValueError('torch.backends.cuda.matmul.allow_tf32 must be False: '
-                         'the absorption matmul feeds exp(labs) in f32')
+                         'the absorption matmuls feed exp() in f32')
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return transport_flight(scene, static, cfg, int(n_photon), gen,
-                            rad_w=rad_w, stats=stats)
+                            flux_w=flux_w, rad_w=rad_w, stats=stats)

@@ -1,12 +1,15 @@
-"""Spectral reduction of raw radiance tallies to physical units (port of
-``er3t_tpu/rtm/out.py:47-106``; NumPy, as in the reference).
+"""Spectral reduction of raw tallies to physical units (port of
+``er3t_tpu/rtm/out.py:47-106, 142-177``; NumPy, as in the reference).
 
     factor(iz, ig) = sol_fac * solar(ig) * weight(ig) * slit(iz, ig)
                      / sum_g[weight * slit(iz, :)]
 
 Raw tallies are per photon of unit weight launched at TOA, normalized to
-unit horizontal TOA solar flux: raw_radiance = tally/N * mu0 * nx * ny.
-Flux and camera reductions are not ported yet (ROADMAP A8, A9).
+unit horizontal TOA solar flux: raw_flux = tally/N * mu0 (per column:
+times Nxf * Nyf) and raw_radiance = tally/N * mu0 * nx * ny.  Heating
+rates come from the direct absorbed-energy tally or from level net
+fluxes.  The camera reduction is not ported yet (ROADMAP A9).  A torch
+tensor given as a tally is copied to the host.
 """
 
 from __future__ import annotations
@@ -15,7 +18,15 @@ import numpy as np
 
 from ..physics.solar import sol_fac as _sol_fac
 
-__all__ = ['spectral_factors', 'reduce_radiance']
+__all__ = ['spectral_factors', 'reduce_flux', 'reduce_radiance',
+           'heating_rate', 'heating_rate_from_absorbed']
+
+_CP = 1004.0            # specific heat of dry air [J/kg/K]
+_RD = 287.0             # gas constant of dry air [J/kg/K]
+
+
+def _host(t):
+    return t.detach().cpu().numpy() if hasattr(t, 'detach') else t
 
 
 def spectral_factors(abs_coef, date=None, nz_out: int | None = None):
@@ -38,14 +49,66 @@ def spectral_factors(abs_coef, date=None, nz_out: int | None = None):
 def reduce_radiance(tally_rad, n_launched: int, abs_coef, mu0: float,
                     date=None, precontracted=False):
     """Physical radiance (Nx, Ny) [W/m^2/nm/sr] from a raw (Nx, Ny, Ng)
-    radiance tally (NumPy array; a torch tensor is copied to the host).
+    radiance tally.
 
     ``precontracted``: the tally's g axis is a singleton already contracted
     with the spectral factors in the step (``rad_w``)."""
-    if hasattr(tally_rad, 'detach'):
-        tally_rad = tally_rad.detach().cpu().numpy()
+    tally_rad = _host(tally_rad)
     nx, ny, ng = tally_rad.shape
     factors, toa = spectral_factors(abs_coef, date=date, nz_out=1)
     raw = tally_rad * (mu0 * nx * ny / max(n_launched, 1))
     rad = raw[..., 0] if precontracted else raw @ factors[0]
     return {'rad': rad, 'toa': toa}
+
+
+def reduce_flux(tally_flux, n_launched: int, abs_coef, mu0: float, date=None,
+                precontracted=False):
+    """Physical fluxes from a raw (Nxf, Nyf, Nlev, 3, Ng) flux tally: a dict
+    of (Nxf, Nyf, Nlev) arrays [W/m^2/nm] ``f_down_direct``,
+    ``f_down_diffuse``, ``f_up``, ``f_down``, and ``toa``.
+
+    Each of the Nxf*Nyf columns receives an equal share of the uniformly
+    launched budget, so the per-area normalization is (Nxf*Nyf)/N.
+    ``precontracted``: the g axis is a singleton already contracted with
+    the spectral factors in the step (``flux_w``)."""
+    tally_flux = _host(tally_flux)
+    nlev = tally_flux.shape[2]
+    factors, toa = spectral_factors(abs_coef, date=date, nz_out=nlev)
+    n_col = tally_flux.shape[0] * tally_flux.shape[1]
+    raw = tally_flux * (mu0 * n_col / max(n_launched, 1))
+    if precontracted:
+        phys = raw[..., 0]
+    else:
+        phys = np.einsum('xyzcg,zg->xyzc', raw, factors)
+    return {'f_down_direct': phys[..., 0], 'f_down_diffuse': phys[..., 1],
+            'f_up': phys[..., 2], 'f_down': phys[..., 0] + phys[..., 1],
+            'toa': toa}
+
+
+def _heat_capacity(atm):
+    """Per-layer air heat capacity per area rho * cp * dz [J/m^2/K]."""
+    dz_m = atm.lay.thickness * 1000.0
+    rho = atm.lay.pressure * 100.0 / (_RD * atm.lay.temperature)
+    return rho * _CP * dz_m
+
+
+def heating_rate(flux: dict, atm):
+    """Heating rate [K/day] per layer from the level net fluxes of
+    :func:`reduce_flux`: the net-flux convergence over the layer's air
+    heat capacity."""
+    f_net = flux['f_down'] - flux['f_up']                       # (..., Nlev)
+    d_fnet = f_net[..., 1:] - f_net[..., :-1]
+    return d_fnet / _heat_capacity(atm) * 86400.0
+
+
+def heating_rate_from_absorbed(absorbed_tally, n_launched, abs_coef, mu0,
+                               atm, date=None):
+    """Heating rate [K/day] from the step's direct (Nz, Ng) absorbed-energy
+    tally: the flux tallies' photon normalization and factor chain (the
+    layer-bottom level factors), then the layer heat capacity."""
+    absorbed_tally = np.asarray(_host(absorbed_tally))
+    nz, ng = absorbed_tally.shape
+    factors, _ = spectral_factors(abs_coef, date=date, nz_out=nz + 1)
+    abs_phys = (absorbed_tally * factors[:nz]).sum(axis=1) \
+        * (mu0 / max(n_launched, 1))                        # W/m^2/nm
+    return abs_phys / _heat_capacity(atm) * 86400.0

@@ -3,10 +3,11 @@
 
 :func:`solve` builds a scene on the given device, runs ``n_run`` independent
 transport passes split into chunks, and reduces the tallies to physical
-radiance with the mean and std over runs (the reference's MC-noise
-protocol).  This slice runs satellite radiance with the 3D solver and
-correlated g-points; every other option raises ``NotImplementedError``
-naming its ROADMAP item.
+radiance, fluxes or heating rates with the mean and std over runs (the
+reference's MC-noise protocol).  It runs satellite radiance, flux and
+heating rate with the 3D solver, the flight engine and correlated
+g-points; every other option raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 Unlike the reference, a chunk that fails is not retried or skipped: the
 error propagates, so a fault on the card is never turned into a photon
@@ -47,24 +48,26 @@ class Result:
 
 
 def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
-                rad_w=None):
+                flux_w=None, rad_w=None):
     """One independent pass, split into chunks of at most ``chunk`` photons
     (chunks differ only by seed, ``seed + 7919 * i`` as in the reference).
-    Returns the summed (Nx, Ny, Ng_r) tally on the host and the launched
-    count."""
-    rad = None
+    Returns the summed image, flux and absorbed tallies on the host and
+    the launched count."""
+    sums = None
     n_total = 0
     remaining = int(n_photon)
     i = 0
     while remaining > 0:
         n_c = min(remaining, chunk)
         tal = run_transport_flight(scene, static, cfg, n_c, seed + 7919 * i,
-                                   device, rad_w=rad_w)
-        rad = tal.rad if rad is None else rad + tal.rad
+                                   device, flux_w=flux_w, rad_w=rad_w)
+        parts = (tal.rad, tal.flux, tal.absorbed)
+        sums = parts if sums is None else [a + b for a, b in zip(sums, parts)]
         n_total += int(tal.n_launched)
         remaining -= n_c
         i += 1
-    return rad.cpu().numpy(), n_total
+    rad, flux, absorbed = (t.cpu().numpy() for t in sums)
+    return rad, flux, absorbed, n_total
 
 
 def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
@@ -78,12 +81,16 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
           flux_kcross=4, cf_dtau=0.0, pathlength=False, split_wmax=0.0,
           rr_wmin=0.1, n_scat_max=2000, mesh=None, diffusion=0,
           qmc_launch=False, pfpeak=None, mode='mean', *, device='cuda'):
-    """Run a radiance simulation on ``device`` (the card unless the caller
-    asks for the CPU); parameters as the reference's ``solve``
-    (``er3t_tpu/rtm/solver.py:223``).  ``batch``
-    defaults to 2^17 lanes on a GPU and 2^14 on the CPU;
-    ``flux_per_column`` has no effect on radiance, as in the reference.
-    Returns a :class:`Result` with ``rad`` (Nx, Ny) and ``rad_std``."""
+    """Run a simulation on ``device`` (the card unless the caller asks for
+    the CPU); parameters as the reference's ``solve``
+    (``er3t_tpu/rtm/solver.py:223``).  ``batch`` defaults to 2^17 lanes on
+    a GPU and 2^14 on the CPU.  Returns a :class:`Result`: radiance has
+    ``rad`` (Nx, Ny); flux and heating rate have ``f_down_direct``,
+    ``f_down_diffuse``, ``f_down`` and ``f_up`` (Nxf, Nyf, Nz+1), and
+    heating rate also ``hr`` (Nz,) [K/day]; each with its ``_std``.
+    ``flux_per_column`` defaults to per-column tallies on 3D scenes, except
+    for heating rate, whose direct absorbed-energy tally is domain-average
+    (reference :301-304)."""
     if mode not in ('mean', 'all'):
         raise ValueError(f"mode must be 'mean' or 'all'; got {mode!r}")
     if atm is None or abs_coef is None:
@@ -106,6 +113,7 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         batch=int(batch),
         sensor_zenith=float(sensor_zenith_angle),
         sensor_azimuth=float(sensor_azimuth_angle),
+        flux_per_column=bool(flux_per_column),
         tile_size=int(tile_size),
         p3d_order=int(p3d_order) if solver == 'p3d' else 0,
         cf_dtau=float(cf_dtau), pathlength=bool(pathlength),
@@ -127,19 +135,39 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         surface=surface, solar_zenith_angle=solar_zenith_angle,
         solar_azimuth_angle=solar_azimuth_angle, ipa=ipa,
         forward_trunc_deg=forward_trunc_deg, pfpeak=pfpeak, device=device)
+    if flux_per_column is None:
+        cfg = dataclasses.replace(
+            cfg, flux_per_column=static.has_3d and target != 'heating_rate')
 
     mu0 = float(np.cos(np.deg2rad(solar_zenith_angle)))
-    # image deposits are contracted over g in the step (rad_w)
-    rad_w = out.spectral_factors(abs_coef, date=date, nz_out=1)[0][0]
+    # image deposits and clamped per-column crossings are contracted over g
+    # in the step (rad_w, flux_w), exactly equal to the contraction after
+    rad_w = flux_w = None
+    if target == 'radiance':
+        rad_w = out.spectral_factors(abs_coef, date=date, nz_out=1)[0][0]
+    elif cfg.flux_per_column and cfg.flux_kcross > 0:
+        flux_w = out.spectral_factors(abs_coef, date=date,
+                                      nz_out=static.nz + 1)[0]
     per_run = []
     n_eff = 0
     for r in range(n_run):
-        rad_t, n_l = _single_run(scene, static, cfg, int(photons),
-                                 seed + 1000003 * r, device, chunk=chunk,
-                                 rad_w=rad_w)
+        rad_t, flux_t, absd, n_l = _single_run(
+            scene, static, cfg, int(photons), seed + 1000003 * r, device,
+            chunk=chunk, flux_w=flux_w, rad_w=rad_w)
         n_eff += n_l
-        per_run.append(out.reduce_radiance(rad_t, n_l, abs_coef, mu0,
-                                           date=date, precontracted=True))
+        if target == 'radiance':
+            red = out.reduce_radiance(rad_t, n_l, abs_coef, mu0, date=date,
+                                      precontracted=True)
+        else:
+            red = out.reduce_flux(flux_t, n_l, abs_coef, mu0, date=date,
+                                  precontracted=flux_w is not None)
+            if target == 'heating_rate':
+                # the direct absorbed-energy tally where the run kept one
+                # (domain-average tallies), else net-flux differencing
+                red['hr'] = (out.heating_rate_from_absorbed(
+                    absd, n_l, abs_coef, mu0, atm, date=date)
+                    if absd.size > 1 else out.heating_rate(red, atm))
+        per_run.append(red)
 
     keys = [k for k in per_run[0] if k != 'toa']
     data = {k: np.mean([p[k] for p in per_run], axis=0) for k in keys}

@@ -71,9 +71,15 @@ def rehearsal(monkeypatch, tmp_path):
                                        LIMIT}))
     monkeypatch.setattr(_build, 'build_all', lambda: {})
     monkeypatch.setattr(_build, 'load', lambda name: None)
+    # the reference runs of the bench scene, replaced by a spread that
+    # admits the 12x12 scene's means
+    wide = ((0.0, 0.0), (100.0, 100.0))
     for name, value in (('BATCH', 1024), ('RAGGED', 1003),
                         ('PHOTONS', 20_000), ('WARM_PHOTONS', 4_000),
-                        ('SOLVE_PHOTONS', 4_000), ('REF_SIGMA', 1.0),
+                        ('SOLVE_PHOTONS', 4_000), ('FLUX_PHOTONS', 20_000),
+                        ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', wide),
+                        ('REF_RUN_MEANS', tuple(r[0] for r in wide)),
+                        ('HR_REF_RUNS', tuple(r[0] for r in wide)),
                         ('OUT_JSON', str(tmp_path / 'chip_smoke.json')),
                         ('build_bench_scene', _small_scene)):
         monkeypatch.setattr(chip_smoke, name, value)
@@ -119,8 +125,23 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert main['phase_pair_launches'] == main['steps'] > 0
     assert all(n == 0 for k, n in main['launches'].items()
                if k != 'phase_pair')
+    flux = report['flux']
+    assert flux['phase_pair_launches'] == flux['steps'] > 0
+    assert flux['photons'] == 20_000 and flux['toa_direct_max_rel_err'] <= 1e-5
+    assert all(n == 0 for k, n in flux['launches'].items()
+               if k != 'phase_pair')
+    for key in ('f_down_sfc', 'f_up_toa'):
+        assert set(flux[key]) == {'value', 'ref', 'tol', 'rel_diff'}
+        assert flux[key]['value'] > 0
+    hr = report['heating_rate']
+    assert len(hr['hr']) == 14 and abs(hr['closure_rel_diff']) <= 0.05
+    assert hr['n_photon_effective'] == 20_000
+    assert hr['launches']['phase_pair'] > 0
+    assert hr['column_absorbed']['value'] > 0
+    assert kernels[0]['flux_launches'] == flux['steps']
     for k in kernels:
-        assert set(k) == KEYS, k['name']
+        assert set(k) == KEYS | ({'flux_launches'} if k['name'] == 'phase_pair'
+                                 else set()), k['name']
         assert k['launches'] > 0 and k['max_abs_err'] == 0.0, k['name']
         assert k['floor_ms'] == 1.0 and k['ms'] == k['plain_ms'] == 1.0
         assert k['bound_by'] == 'bytes' and 0 < k['bound_ms'] < 1.0
@@ -155,3 +176,18 @@ def test_bounds_count_the_bytes_this_run_touches():
     ms, by = chip_smoke.bound((3.35e9, 1.0))
     assert by == 'bytes' and ms == pytest.approx(1.0)
     assert chip_smoke.bound((0, 67e9)) == (pytest.approx(1.0), 'operations')
+
+
+def test_reference_tolerance_scales_the_runs_spread():
+    """max(rel, 4 sigma), sigma the spread of one reference run scaled to
+    the checked photons, combined with the reference mean's own error."""
+    runs = (1.0, 1.2, 1.1, 0.9)                  # mean 1.05, sd 0.129
+    sd = float(np.std(runs, ddof=1))
+    r = chip_smoke.against_ref('x', 1.3, runs, 100, 400, 0.01)
+    assert r['ref'] == pytest.approx(1.05)
+    assert r['tol'] == pytest.approx(4 * np.hypot(sd / 2, sd / 2))
+    assert r['rel_diff'] == pytest.approx(1.3 / 1.05 - 1)
+    assert chip_smoke.against_ref('x', 1.05, (1.05, 1.05), 1, 1, 0.01)[
+        'tol'] == pytest.approx(0.0105)
+    with pytest.raises(AssertionError, match='not within'):
+        chip_smoke.against_ref('x', 1.5, runs, 100, 400, 0.01)

@@ -59,11 +59,9 @@ def test_phase_pair_kernel_equals_plain(cuda, shape):
     assert torch.equal(pe, ref_pe) and torch.equal(mn, ref_mn)
 
 
-@pytest.mark.cuda
-def test_flight_step_on_card_matches_cpu(cuda):
-    """Four steps of the same carry and deviates on the card and on the
-    CPU: continuous state to rtol 1e-4 / atol 1e-5 (coordinates on the
-    domain's scale), discrete state on >= 99.9 % of lanes."""
+def _broken_inputs():
+    """The 32x32 broken-cloud scene of tests/test_torch_flight.py: the
+    atmosphere, 4 g-points and the build_scene keywords."""
     levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
     atm = atm_atmmod(levels)
     ab = abs_synthetic(650.0, atm, ng=4)
@@ -72,6 +70,15 @@ def test_flight_step_on_card_matches_cpu(cuda):
                       cloud_base=0.5, seed=3)
     kw = dict(cld=cld, surface=0.05, solar_zenith_angle=30.0,
               solar_azimuth_angle=45.0, forward_trunc_deg=20.0)
+    return atm, ab, kw
+
+
+@pytest.mark.cuda
+def test_flight_step_on_card_matches_cpu(cuda):
+    """Four steps of the same carry and deviates on the card and on the
+    CPU: continuous state to rtol 1e-4 / atol 1e-5 (coordinates on the
+    domain's scale), discrete state on >= 99.9 % of lanes."""
+    atm, ab, kw = _broken_inputs()
     rad_w = spectral_factors(ab, nz_out=1)[0][0]
     cfg = SolverConfig(target='radiance', batch=4096, n_scat_max=300,
                        tile_size=16, qmc_launch=True)
@@ -105,6 +112,46 @@ def test_flight_step_on_card_matches_cpu(cuda):
         assert float(got.rad.sum()) == pytest.approx(float(ref.rad.sum()),
                                                      rel=1e-4)
         c = ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('per_col', [True, False],
+                         ids=['kx4_flux_w', 'domain_absorbed'])
+def test_flux_step_on_card_matches_cpu(cuda, per_col):
+    """The flux branch: four steps of one carry and deviates on the card
+    and on the CPU; lane state as above, tallies (index_add_ and sums,
+    in another order on the card) to 1e-4 of their totals, and one phase
+    pair launch per step."""
+    atm, ab, kw = _broken_inputs()
+    cfg = SolverConfig(target='flux', batch=4096, n_scat_max=300,
+                       tile_size=16, qmc_launch=True, flux_per_column=per_col)
+    flux_w = spectral_factors(ab, nz_out=len(atm.lev.altitude))[0]
+    kerns = {d: mc_flight.FlightKernel(
+        *build_scene(atm, ab, **kw, device=d), cfg, 60000, flux_w=flux_w)
+        for d in ('cpu', cuda)}
+    rng = np.random.default_rng(2)
+    c = kerns['cpu'].carry0(4096)
+    for k in range(4):
+        u = torch.from_numpy(rng.uniform(1e-7, 1 - 1e-7, (14, 4096))
+                             .astype(np.float32))
+        on = mc_flight.FlightCarry(*[
+            v.to(cuda) if isinstance(v, torch.Tensor) else v for v in c])
+        before = phase_pair.launches
+        got = kerns[cuda].step(on, u.to(cuda), 7)
+        assert phase_pair.launches == before + 1
+        ref = kerns['cpu'].step(c, u, 7)        # tallies grow in place
+        for f in ('ux', 'uy', 'uz', 'wsc', 'labs', 'tau', 'plen'):
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                       getattr(ref, f).numpy(),
+                                       rtol=1e-4, atol=1e-5)
+        for f in ('alive', 'nscat', 'direct'):
+            same = (getattr(got, f).cpu() == getattr(ref, f)).float().mean()
+            assert float(same) >= 0.999, (k, f)
+        for f in ('flux', 'absorbed'):
+            assert float(getattr(got, f).double().sum()) == pytest.approx(
+                float(getattr(ref, f).double().sum()), rel=1e-4), (k, f)
+        c = ref
+    assert float(c.flux.sum()) > 0
 
 
 @pytest.mark.cuda

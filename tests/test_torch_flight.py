@@ -80,9 +80,11 @@ def _mixed():
 def _to_port(c):
     lanes = {f: torch.from_numpy(np.array(getattr(c, f)))
              for f in tmf._LANE_FIELDS}
+    ng = c.labs.shape[0] - 1
     return tmf.FlightCarry(**lanes, launched=torch.tensor(int(c.launched)),
                            step=int(c.step),
-                           rad=torch.from_numpy(np.array(c.rad)))
+                           rad=torch.from_numpy(np.array(c.rad)),
+                           flux=torch.zeros(1, ng), absorbed=torch.zeros(1, 1))
 
 
 @pytest.mark.parametrize('make', [_broken, _mixed], ids=['broken', 'mixed'])

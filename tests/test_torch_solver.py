@@ -71,7 +71,8 @@ def test_spectral_reduction_equals_reference(case, date):
 
 
 @pytest.mark.parametrize('bad', [
-    dict(target='flux'), dict(target='heating_rate'), dict(solver='ipa'),
+    dict(target='flux', flux_engine='marching'),
+    dict(target='heating_rate', spectral='independent'), dict(solver='ipa'),
     dict(solver='p3d'), dict(sensor_type='camera'), dict(camera={'npix': 8}),
     dict(spectral='independent'), dict(cf_dtau=0.5), dict(pathlength=True),
     dict(split_wmax=2.0), dict(mesh='x-slab mesh'), dict(diffusion=1)],
@@ -82,7 +83,8 @@ def test_solve_refuses_unported_options(case, bad):
 
 
 @pytest.mark.parametrize('bad', [
-    dict(target='flux'), dict(sensor_type='camera'), dict(p3d_order=1),
+    dict(target='flux', flux_engine='marching'), dict(sensor_type='camera'),
+    dict(p3d_order=1),
     dict(cf_dtau=0.5), dict(split_wmax=2.0), dict(rr_value=0.1),
     dict(sort_every=4), dict(launch_coherent=True),
     dict(cam_importance_sigma=1.0), dict(pathlength=True), dict(ipa=True)],
