@@ -39,7 +39,10 @@ Phases (any failure raises and the exit code is non-zero):
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
-   beside it; then the probe path, the gather probes
+   beside it, and on the paths of the kernels' width and alignment
+   dispatch: take_reps windows at the wrap of a table at widths 1 and 3,
+   gather_row_sum on a ragged width (99) and on a table view one float
+   off 16-byte alignment; then the probe path, the gather probes
    (python -m er3t_tpu_torch.probes.gather_probe all), with every launch
    count set to 0 just before: each probe kernel must have launched, and
    the shared memory ceiling must be the card's opt-in limit, exactly;
@@ -322,6 +325,15 @@ def take2d_library(idx, tab, mode):
     return lambda: torch.gather(tab, 0 if mode == 'axis0' else 1, i64)
 
 
+def take_reps_library(idx, tab, reps):
+    """One PyTorch call for take_reps on a one-column table: an embedding
+    bag of each lane's wrapped (B, reps) window, built outside the timed
+    call."""
+    win = torch.remainder(idx.long()[:, None]
+                          + torch.arange(reps, device=idx.device), tab.shape[0])
+    return lambda: F.embedding_bag(win, tab, mode='sum')
+
+
 def row_sum_library(idx, tab):
     """One PyTorch call for gather_row_sum: an embedding bag of one row."""
     i64 = idx.long().reshape(-1, 1)
@@ -390,13 +402,25 @@ def probe_kernel_cases(rng, dev, gen):
                                      (RAGGED, 61440, 4))):
         add('take_reps', f'{rows}x1_reps{reps}_B{b}', gather.take_reps,
             gather.take_reps_ref, randint(rows, b), randn(rows, 1), reps,
-            row=row, cost=take_reps_cost)
-    for row, (b, rows, width) in zip(('K3', 'K4', None),
-                                     ((BATCH, 921600, 2), (BATCH, 512, 128),
-                                      (RAGGED, 921600, 5))):
-        add('gather_row_sum', f'{rows}x{width}_B{b}', gather.gather_row_sum,
-            gather.gather_row_sum_ref, randint(rows, b), randn(rows, width),
-            row=row, cost=row_sum_cost, library=row_sum_library)
+            row=row, cost=take_reps_cost, library=take_reps_library)
+    # windows at the wrap: every lane's index is -12 .. -1, so (floor
+    # modulo) its window starts within 12 rows of the table's end, and
+    # those that start in the last 4 rows wrap to row 0
+    for width in (1, 3):
+        add('take_reps', f'61443x{width}_reps5_at_wrap_B{BATCH}',
+            gather.take_reps, gather.take_reps_ref,
+            randint(12, BATCH) - 12, randn(61443, width), 5)
+    for row, (b, rows, width, offset) in zip(
+            ('K3', 'K4', None, None, None), (
+                (BATCH, 921600, 2, 0), (BATCH, 512, 128, 0),
+                (RAGGED, 921600, 5, 0),
+                (BATCH, 4096, 99, 0),       # ragged width: scalar, 8 lanes
+                (BATCH, 512, 128, 1))):     # misaligned table: scalar loads
+        tab = randn(rows * width + offset)[offset:].view(rows, width)
+        add('gather_row_sum', f'{rows}x{width}_B{b}'
+            + (f'_offset{offset}' if offset else ''), gather.gather_row_sum,
+            gather.gather_row_sum_ref, randint(rows, b), tab, row=row,
+            cost=row_sum_cost, library=row_sum_library)
     for row, (mode, tab, idx, hi) in zip(('K7', 'K6', None, None, None,
                                           None), (
             ('axis0', (1280, 128), (1280, 128), 1280),

@@ -41,7 +41,7 @@ KERNELS = {
     'take_reps': ('gather_probe.cu', 'er3t_take_reps',
                   [_c, _c, _c, _i, _i, _i, _i, _c]),
     'gather_row_sum': ('gather_probe.cu', 'er3t_gather_row_sum',
-                       [_c, _c, _c, _i, _i, _i, _c]),
+                       [_c, _c, _c, _i, _i, _i, _i, _c]),
     'take2d': ('gather_probe.cu', 'er3t_take2d',
                [_c, _c, _c, _i, _i, _i, _i, _i, _c]),
     'smem_stage': ('gather_probe.cu', 'er3t_smem_stage', [_c, _c, _i, _c]),

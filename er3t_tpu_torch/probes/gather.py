@@ -7,7 +7,9 @@ K7/K8 is :func:`er3t_tpu_torch.rtm.phase_pair.phase_pair` on bf16 or f32
 tables).  On CUDA tensors each wrapper launches its hand-written kernel of
 ``er3t_tpu_torch/csrc/gather_probe.cu`` and adds one to its ``launches``;
 on CPU tensors it runs its plain PyTorch version (``*_ref``), which the
-kernel equals bit for bit: the sums run in the same order.  Indices are
+kernel equals bit for bit: the sums run in the same order (for
+``gather_row_sum``, the order of its kernel's lane groups, written down
+in :func:`gather_row_sum_ref`).  Indices are
 clamped into their tables (``take_reps`` wraps them, as the TPU kernel
 does).
 """
@@ -15,12 +17,14 @@ does).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .._build import launch
 
 __all__ = ['take_reps', 'take_reps_ref', 'gather_row_sum',
-           'gather_row_sum_ref', 'take2d', 'take2d_ref', 'smem_stage',
-           'smem_stage_ref', 'noop', 'TAKE2D_MODES']
+           'gather_row_sum_ref', 'row_sum_lanes', 'take2d', 'take2d_ref',
+           'smem_stage', 'smem_stage_ref', 'noop', 'TAKE2D_MODES',
+           'ROW_SUM_LANES']
 
 TAKE2D_MODES = ('rows', 'axis0', 'axis1')
 _MAX = 2 ** 30          # every size a kernel indexes with 32-bit ints
@@ -79,27 +83,66 @@ def take_reps(idx, tab, reps):
 
 # ---- K3: scripts/tpu_gather_probe.py:145-150; K4: :178-183 ----
 
-def gather_row_sum_ref(idx, tab):
-    """``out[b] = sum_c tab[idx[b], c]``, summed in c order."""
-    rows = tab[torch.clamp(idx, 0, tab.shape[0] - 1).long()]
-    acc = torch.zeros(idx.shape, dtype=tab.dtype, device=tab.device)
-    for c in range(tab.shape[1]):
-        acc = acc + rows[:, c]
-    return acc
+ROW_SUM_LANES = (1, 2, 4, 8)    # lanes that may read one row
 
 
-def gather_row_sum(idx, tab):
+def row_sum_lanes(width):
+    """The lanes that read one row of ``width`` floats on the card: as many
+    as the row has 4-float chunks, rounded up to a power of two, at most
+    8; one thread a row up to width 4 (the rule is the fastest of the lane
+    counts measured at widths 1-1024: PERF.md)."""
+    return min(ROW_SUM_LANES[-1], 1 << (-(-width // 4) - 1).bit_length())
+
+
+def gather_row_sum_ref(idx, tab, lanes=None):
+    """``out[b] = sum_c tab[clamp(idx[b]), c]`` in the kernel's order, for
+    a group of ``lanes`` lanes a row (default :func:`row_sum_lanes`):
+
+    1. the row is cut into chunks of 4 floats (the last may be short);
+       chunk k belongs to lane ``k mod lanes``;
+    2. each lane adds its elements to 0.0 one at a time, in index order;
+    3. the lane partials ``s`` (B, lanes) are folded by halves,
+       ``s = s[:, :h] + s[:, h:]`` for h = lanes/2, ..., 2, 1, which is
+       what lane 0 holds after the ``__shfl_xor_sync`` butterfly of
+       offsets lanes/2, ..., 1 (float addition commutes exactly).
+
+    With one lane this is the plain column-order sum.  Padding the row
+    with zeros to whole chunks adds +0.0 to partials that are never -0.0,
+    which changes no bit."""
+    rows, width = tab.shape
+    lanes = row_sum_lanes(width) if lanes is None else lanes
+    x = tab[torch.clamp(idx, 0, rows - 1).long()]
+    per = -(-width // (4 * lanes))                  # chunks a lane
+    x = F.pad(x, (0, per * 4 * lanes - width)).view(-1, per, lanes, 4)
+    s = torch.zeros((idx.shape[0], lanes), dtype=tab.dtype, device=tab.device)
+    for i in range(per):
+        for k in range(4):
+            s = s + x[:, i, :, k]
+    while s.shape[1] > 1:
+        h = s.shape[1] // 2
+        s = s[:, :h] + s[:, h:]
+    return s[:, 0]
+
+
+def gather_row_sum(idx, tab, lanes=None):
     """K3 (the flat ``(R * W,)`` table of K3 is ``tab.view(R, W)``) and K4
-    on (B,) int32 ``idx`` and an (R, W) f32 ``tab``; (B,) f32."""
+    on (B,) int32 ``idx`` and an (R, W) f32 ``tab``; (B,) f32, summed in
+    the order of :func:`gather_row_sum_ref` for ``lanes`` lanes a row
+    (default :func:`row_sum_lanes`; another of :data:`ROW_SUM_LANES` only
+    for the design sweep of ``gather_probe``)."""
     dev = idx.device
     _check('gather_row_sum', dev, idx=(idx, torch.int32, (1,)),
            tab=(tab, torch.float32, (2,)))
+    lanes = row_sum_lanes(tab.shape[1]) if lanes is None else lanes
+    if lanes not in ROW_SUM_LANES:
+        raise ValueError(f'gather_row_sum: lanes must be one of '
+                         f'{ROW_SUM_LANES}, got {lanes}')
     if dev.type == 'cpu':
-        return gather_row_sum_ref(idx, tab)
+        return gather_row_sum_ref(idx, tab, lanes)
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     _launch(gather_row_sum, 'gather_row_sum', dev, idx.data_ptr(),
             tab.data_ptr(), out.data_ptr(), idx.numel(), tab.shape[0],
-            tab.shape[1])
+            tab.shape[1], lanes)
     return out
 
 

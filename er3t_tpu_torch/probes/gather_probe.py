@@ -15,7 +15,8 @@ tag, so TPU and GPU rows line up, plus ``"route"``:
   ``csrc/gather_probe.cu``; the phase pair of ``csrc/phase_pair.cu``),
   checked bit for bit against its plain version before it is timed (a
   mismatch raises), with the plain version's time beside it as
-  ``plain_ms``;
+  ``plain_ms`` (not in the design sweep of probe 1, ``row_sum_lanes``:
+  every lane count of ``gather_row_sum`` at widths 1-1024);
 * ``torch``: the scripts' XLA experiments, which are plain PyTorch ops here
   (``index_select``, ``index_add_``, ``matmul``, ``cumsum``, ``torch.rand``);
   the scatter-adds update their tally in place, as the port's image
@@ -55,9 +56,9 @@ import torch
 
 from .._build import CudaError
 from ..rtm.phase_pair import phase_pair, phase_pair_ref
-from .gather import (gather_row_sum, gather_row_sum_ref, noop, smem_stage,
-                     smem_stage_ref, take2d, take2d_ref, take_reps,
-                     take_reps_ref)
+from .gather import (ROW_SUM_LANES, gather_row_sum, gather_row_sum_ref, noop,
+                     smem_stage, smem_stage_ref, take2d, take2d_ref,
+                     take_reps, take_reps_ref)
 
 __all__ = ['run', 'main', 'device_ms', 'card_line', 'PROBES']
 
@@ -66,6 +67,8 @@ K = 50                          # loop iterations of the in-loop experiments
 PROBES = ('1', '2', '3', '3b')
 NPF2, NM = 40, 4096             # eval phase table (working + TMS rows, bins)
 NPF, NU = 20, 8192              # sample phase table (rows, bins)
+# row widths of the gather_row_sum design sweep (the voxel table's is 5)
+SWEEP_WIDTHS = (1, 2, 3, 4, 5, 8, 16, 32, 64, 128, 256, 1024)
 
 
 def card_line() -> str:
@@ -138,10 +141,11 @@ class _Probes:
                     platform='gpu', card=card_line())
 
     # ---- measurement ----
-    def kernel(self, tag, kern, plain, rows=None, **kw):
+    def kernel(self, tag, kern, plain, rows=None, time_plain=True, **kw):
         """Check ``kern()`` bit for bit against ``plain()``, then time both
-        and report them under ``tag``, with the kernel's ns per row when it
-        reads ``rows`` table rows per call."""
+        (the plain version unless ``time_plain`` is False) and report them
+        under ``tag``, with the kernel's ns per row when it reads ``rows``
+        table rows per call."""
         got, ref = kern(), plain()
         got, ref = ((got, ref) if isinstance(got, tuple)
                     else ((got,), (ref,)))
@@ -149,10 +153,12 @@ class _Probes:
             raise AssertionError(
                 f'{tag}: kernel != plain version, max |diff| '
                 f'{max(float((g - r).abs().max()) for g, r in zip(got, ref))}')
-        ms, plain_ms = device_ms(kern), device_ms(plain)
+        ms = device_ms(kern)
+        if time_plain:
+            kw['plain_ms'] = device_ms(plain)
         if rows:
             kw['ns_per_row'] = ms / rows * 1e6
-        self.report(tag, 'cuda', **kw, ms=ms, plain_ms=plain_ms)
+        self.report(tag, 'cuda', **kw, ms=ms)
 
     def inloop(self, tag, op, route='torch', draws=()):
         """Marginal device time of ``op(u, acc) -> acc`` per loop iteration
@@ -235,6 +241,7 @@ class _Probes:
             self.kernel(tag, lambda: gather_row_sum(idx, tab),
                         lambda: gather_row_sum_ref(idx, tab), B,
                         tab_rows=rows, width=128)
+        self.design_sweep()
 
         # 5. the on-chip ceiling: the largest table one block stages in
         # shared memory (K5; the script sweeps VMEM up to 120 MB)
@@ -257,6 +264,24 @@ class _Probes:
         else:
             raise AssertionError(f'smem_stage staged {over.numel() * 4} B, '
                                  f'above the opt-in limit of {limit} B')
+
+    def design_sweep(self):
+        """The questions the fused flight step inherits (PERF.md): does a
+        row read by a group of lanes with 16-byte loads beat one thread a
+        row, and from what width (every lane count at each of
+        :data:`SWEEP_WIDTHS`, on the voxel table's 921600 rows up to width
+        5 and on the same 18 MB above it, then on K4's (512, 128) table).
+        Kernel times only, each checked bitwise."""
+        for rows, width in [(921600 * 5 // max(w, 5), w)
+                            for w in SWEEP_WIDTHS] + [(512, 128)]:
+            tab = self.randn(rows, width)
+            idx = self.randint(rows, B)
+            for lanes in ROW_SUM_LANES:
+                self.kernel('row_sum_lanes',
+                            lambda: gather_row_sum(idx, tab, lanes),
+                            lambda: gather_row_sum_ref(idx, tab, lanes), B,
+                            time_plain=False, tab_rows=rows, width=width,
+                            lanes=lanes)
 
     def timing_methods(self):
         """The launch floor, the phase pair (B lanes, the bench scene's

@@ -29,7 +29,7 @@ torch.set_num_threads(2)
 LIMIT = 232448
 KEYS = {'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'floor_ms'}
-LIBRARY = {'gather_row_sum', 'take2d', 'smem_stage'}
+LIBRARY = {'take_reps', 'gather_row_sum', 'take2d', 'smem_stage'}
 
 
 def _small_scene(device):
@@ -152,6 +152,7 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert all(r['bound_ms'] > 0 and r['floor_ms'] == 1.0
                for r in rows.values())
     assert rows['K4']['library_ms'] == rows['K6']['library_ms'] == 1.0
+    assert rows['K2']['library_ms'] == 1.0
     ceiling = [(r['bytes'], r['ok']) for r in report['probes']
                if r['probe'] == 'vmem_ceiling']
     assert ceiling[-2:] == [(LIMIT, True), (LIMIT + 4, False)]

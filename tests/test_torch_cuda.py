@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from er3t_tpu_torch._build import CudaError
+from er3t_tpu_torch._build import CudaError, launch
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
@@ -218,6 +218,100 @@ def test_probe_kernel_equals_plain(cuda, case, b):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert torch.equal(out, ref(*args))
+
+
+ROW_WIDTHS = [1, 2, 3, 5, 31, 32, 33, 64, 100, 128, 200, 1024]
+
+
+def _row_sum_launch_equals_plain(idx, tab, lanes=None):
+    before = gather.gather_row_sum.launches
+    out = gather.gather_row_sum(idx, tab, lanes)
+    torch.cuda.synchronize()
+    assert gather.gather_row_sum.launches == before + 1
+    assert torch.equal(out, gather.gather_row_sum_ref(idx, tab, lanes)), lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1 << 17, 100_003], ids=['B131072', 'B100003'])
+@pytest.mark.parametrize('width', ROW_WIDTHS)
+def test_gather_row_sum_equals_plain_at_every_width(cuda, width, b):
+    """The lanes the wrapper picks for the width (one thread a row up to
+    width 4, a group of up to 8 above), indices a few rows out of range at
+    both ends."""
+    rng = np.random.default_rng(7)
+    rows = max(64, (1 << 22) // width)
+    tab = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32))
+    idx = rng.integers(-3, rows + 3, b).astype(np.int32)
+    _row_sum_launch_equals_plain(torch.from_numpy(idx).to(cuda), tab.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width,offset', [(3, 3), (5, 5), (33, 33), (2, 1),
+                                          (4, 1), (100, 2), (128, 1),
+                                          (128, 2)])
+def test_gather_row_sum_on_a_misaligned_table(cuda, width, offset):
+    """A table view ``offset`` floats into its allocation (one row in at
+    odd widths), so its row starts leave 16-byte alignment: scalar or
+    float2 loads in every lane group, the same sums as the plain
+    version."""
+    rng = np.random.default_rng(8)
+    rows = 4096
+    flat = torch.from_numpy(rng.normal(size=rows * width + offset)
+                            .astype(np.float32)).to(cuda)
+    tab = flat[offset:].view(rows, width)
+    assert tab.data_ptr() % 16
+    idx = torch.from_numpy(rng.integers(0, rows, 100_003).astype(np.int32))
+    for lanes in gather.ROW_SUM_LANES:
+        _row_sum_launch_equals_plain(idx.to(cuda), tab, lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width', [5, 128, 130])
+def test_gather_row_sum_equals_plain_at_every_lane_count(cuda, width):
+    rng = np.random.default_rng(9)
+    tab = torch.from_numpy(rng.normal(size=(921, width)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 921, 1 << 17).astype(np.int32))
+    for lanes in gather.ROW_SUM_LANES:
+        _row_sum_launch_equals_plain(idx.to(cuda), tab.to(cuda), lanes)
+
+
+@pytest.mark.cuda
+def test_gather_row_sum_entry_refuses_a_bad_lane_count(cuda):
+    """The C entry returns an error for a group size it has no kernel for
+    (not a power of two, or above 8), and the launch raises it."""
+    idx = torch.zeros(64, dtype=torch.int32, device=cuda)
+    tab = torch.zeros(4, 128, device=cuda)
+    out = torch.empty(64, device=cuda)
+    for lanes in (3, 16, 32):
+        with pytest.raises(CudaError):
+            launch('gather_row_sum', cuda, idx.data_ptr(), tab.data_ptr(),
+                   out.data_ptr(), 64, 4, 128, lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width', [1, 3])
+@pytest.mark.parametrize('reps', range(1, 9))
+def test_take_reps_windows_equal_plain(cuda, reps, width):
+    """Every base residue mod 4, negative indices and indices past the
+    table (floor modulo), windows that wrap past the last row, a ragged
+    lane count; then the same on an index view and a table view one
+    element off 16-byte alignment."""
+    rng = np.random.default_rng(10)
+    rows, b = 6147, 100_003
+    idx = rng.integers(-2 * rows, 2 * rows, b + 1)
+    idx[:4096] = rows - 1 - np.arange(4096) % 12
+    assert set(np.mod(idx, 4)) == {0, 1, 2, 3}
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    flat = torch.from_numpy(rng.normal(size=rows * width + 1)
+                            .astype(np.float32)).to(cuda)
+    for i, t in ((idx[:b], flat[:-1].view(rows, width)),
+                 (idx[1:], flat[:-1].view(rows, width)),
+                 (idx[:b], flat[1:].view(rows, width))):
+        before = gather.take_reps.launches
+        out = gather.take_reps(i, t, reps)
+        torch.cuda.synchronize()
+        assert gather.take_reps.launches == before + 1
+        assert torch.equal(out, gather.take_reps_ref(i, t, reps))
 
 
 @pytest.mark.cuda

@@ -154,6 +154,56 @@ def test_gather_row_sum_equals_pallas_k4(rows):
     _row_tol(got.numpy(), ref, tab, idx)
 
 
+# ---- the summation order of gather_row_sum, rebuilt in numpy ----
+
+ROW_SUM_WIDTHS = [1, 2, 3, 5, 31, 32, 33, 64, 100, 128, 200, 1024]
+
+
+def _row_sum_documented(idx, tab, lanes):
+    """The order of gather_row_sum_ref's docstring, built from its words
+    alone: element e of a row is added, in index order, to the partial of
+    lane (e // 4) mod lanes; lane 0 then ends an xor butterfly of offsets
+    lanes/2, ..., 1 over the partials."""
+    rows = tab[np.clip(idx, 0, tab.shape[0] - 1)]
+    part = np.zeros((len(idx), lanes), np.float32)
+    for e in range(rows.shape[1]):
+        lane = (e // 4) % lanes
+        part[:, lane] = part[:, lane] + rows[:, e]
+    o = lanes // 2
+    while o:
+        part = part + part[:, np.arange(lanes) ^ o]
+        o //= 2
+    return part[:, 0]
+
+
+@pytest.mark.parametrize('width', ROW_SUM_WIDTHS)
+def test_gather_row_sum_ref_follows_the_documented_order(width):
+    """Bitwise, at every lane count and at the default one (out-of-range
+    indices clamped); the orders differ, so the check can tell them
+    apart."""
+    rng = _rng(10)
+    tab = rng.normal(size=(97, width)).astype(np.float32)
+    idx = rng.integers(-5, 105, 257).astype(np.int32)
+    t_idx, t_tab = torch.from_numpy(idx), torch.from_numpy(tab)
+    for lanes in gather.ROW_SUM_LANES:
+        got = gather.gather_row_sum_ref(t_idx, t_tab, lanes).numpy()
+        np.testing.assert_array_equal(got, _row_sum_documented(idx, tab,
+                                                               lanes))
+    lanes = gather.row_sum_lanes(width)
+    np.testing.assert_array_equal(gather.gather_row_sum(t_idx, t_tab).numpy(),
+                                  _row_sum_documented(idx, tab, lanes))
+    if width > 32:
+        assert not np.array_equal(_row_sum_documented(idx, tab, 1),
+                                  _row_sum_documented(idx, tab, 8))
+
+
+def test_row_sum_lanes_cover_the_row_chunks_up_to_eight():
+    assert [gather.row_sum_lanes(w) for w in ROW_SUM_WIDTHS] == [
+        1, 1, 1, 2, 8, 8, 8, 8, 8, 8, 8, 8]
+    assert [gather.row_sum_lanes(w) for w in (4, 8, 9, 16, 17)] == [
+        1, 2, 4, 4, 8]
+
+
 # ---- K5: scripts/tpu_gather_probe.py:212-213 (pallas_call :215-220) ----
 
 def _k5(tab):
@@ -377,10 +427,16 @@ def _wrapper_args(name):
     rng = _rng(7)
     idx = torch.from_numpy(rng.integers(0, 64, 300).astype(np.int32))
     tab = torch.from_numpy(rng.normal(size=(64, 8)).astype(np.float32))
+    wide = torch.from_numpy(rng.normal(size=(64, 130)).astype(np.float32))
     return {'take_reps': (gather.take_reps, gather.take_reps_ref,
                           [idx, tab, 3]),
             'gather_row_sum': (gather.gather_row_sum,
                                gather.gather_row_sum_ref, [idx, tab]),
+            'gather_row_sum_wide': (gather.gather_row_sum,
+                                    gather.gather_row_sum_ref, [idx, wide]),
+            'gather_row_sum_lanes4': (gather.gather_row_sum,
+                                      gather.gather_row_sum_ref,
+                                      [idx, wide, 4]),
             'take2d_rows': (gather.take2d, gather.take2d_ref,
                             [idx, tab, 'rows']),
             'take2d_axis0': (gather.take2d, gather.take2d_ref,
@@ -391,8 +447,9 @@ def _wrapper_args(name):
                            [tab.reshape(-1)])}[name]
 
 
-WRAPPERS = ['take_reps', 'gather_row_sum', 'take2d_rows', 'take2d_axis0',
-            'take2d_axis1', 'smem_stage']
+WRAPPERS = ['take_reps', 'gather_row_sum',
+            'gather_row_sum_wide', 'gather_row_sum_lanes4', 'take2d_rows',
+            'take2d_axis0', 'take2d_axis1', 'smem_stage']
 
 
 @pytest.mark.parametrize('name', WRAPPERS)
@@ -419,6 +476,13 @@ def test_wrapper_rejects_bad_inputs(name, bad):
         args[i] = t[:0]
     with pytest.raises(ValueError):
         fn(*args)
+
+
+@pytest.mark.parametrize('lanes', [0, 3, 16, 32, 64, -32])
+def test_gather_row_sum_rejects_bad_lane_counts(lanes):
+    idx = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match='lanes'):
+        gather.gather_row_sum(idx, torch.zeros(4, 128), lanes)
 
 
 @pytest.mark.parametrize('mode,idx_shape', [('rows', (10, 2)),
@@ -486,7 +550,14 @@ def test_probe_entry_point_runs_every_experiment_on_plain_versions(
                 'pair_xla_gathers'):
         assert tags.count(tag) == 2, tag               # probes 3 and 3b
     kern = [r for r in recs if r['route'] == 'cuda' and 'ms' in r]
-    assert kern and all('plain_ms' in r for r in kern)
+    assert kern and all('plain_ms' in r for r in kern
+                        if r['probe'] != 'row_sum_lanes')
+    sweep = [(r['tab_rows'], r['width'], r['lanes']) for r in recs
+             if r['probe'] == 'row_sum_lanes']
+    assert sweep == [(921600 * 5 // max(w, 5), w, n)
+                     for w in gather_probe.SWEEP_WIDTHS
+                     for n in gather.ROW_SUM_LANES] + [
+        (512, 128, n) for n in gather.ROW_SUM_LANES]
     ceiling = [(r['bytes'], r['ok']) for r in recs
                if r['probe'] == 'vmem_ceiling']
     assert ceiling[-2:] == [(limit, True), (limit + 4, False)]
