@@ -24,6 +24,15 @@ Phases (any failure raises and the exit code is non-zero):
    flight step, and its domain-mean radiance must lie within
    max(1 %, 4 sigma) of the JAX reference below;
 5. front door: solve(target='radiance', ...) on the same scene;
+5b. independent g-points: solve(spectral='independent', qmc_launch=False,
+   photons=2e6, n_run=2, mode='all'), the protocol of bench.py's noise
+   phase, one pass per g-point: phase_pair must have launched once per
+   step of the 32 passes, the domain-mean radiance must lie within
+   max(1 %, 4 sigma) of the JAX reference below (both estimators are
+   unbiased for the same field), and diffusion smoothing of the image must
+   keep its total to 1e-9; prints each run's wall, steps and photons/s,
+   and the per-pixel variance per photon over that of phase 5's
+   correlated runs (a two-run estimate);
 4b. flux path, on the same scene: (a) run_transport_flight with per-column
    flux tallies, the crossing-count clamp flux_kcross=4 and the in-step
    contraction flux_w, a warm-up run and then a timed run of 4e6 photons
@@ -42,7 +51,8 @@ Phases (any failure raises and the exit code is non-zero):
    beside it, and on the paths of the kernels' width and alignment
    dispatch: take_reps windows at the wrap of a table at widths 1 and 3,
    gather_row_sum on a ragged width (99) and on a table view one float
-   off 16-byte alignment; then the probe path, the gather probes
+   off 16-byte alignment, take2d on every path of its dispatch
+   (take2d_cases); then the probe path, the gather probes
    (python -m er3t_tpu_torch.probes.gather_probe all), with every launch
    count set to 0 just before: each probe kernel must have launched, and
    the shared memory ceiling must be the card's opt-in limit, exactly;
@@ -66,6 +76,7 @@ steps are profiled (keys "profile" and "profile_flux").
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -81,10 +92,10 @@ from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
-from er3t_tpu_torch.rtm import mc_flight
+from er3t_tpu_torch.rtm import mc_flight, solver
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import (reduce_flux, reduce_radiance,
-                                    spectral_factors)
+                                    smooth_diffusion, spectral_factors)
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
 from er3t_tpu_torch.rtm.scene import build_scene
 from er3t_tpu_torch.rtm.solver import solve
@@ -212,6 +223,7 @@ RAGGED = 100_003                 # a lane count no block size divides
 PHOTONS = 4_000_000              # photons of the timed main-path run
 WARM_PHOTONS = 100_000           # photons of the warm-up run
 SOLVE_PHOTONS = 1_000_000        # photons per run of the front door
+INDEP_PHOTONS = 2_000_000        # photons per run of the independent-g solve
 FLUX_PHOTONS = 4_000_000         # photons of the timed flux-path run
 HR_PHOTONS = 1_000_000           # photons per run of the heating-rate solve
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, HBM3
@@ -375,6 +387,36 @@ def time_case(c, floor_ms):
                 bytes=nbytes, ops=ops)
 
 
+def take2d_cases():
+    """take2d cases of phase 6: (PERF.md row, mode, table, indices, index
+    range, table offset, index offset).  An offset makes a view that many
+    elements into its allocation, so off 16-byte alignment; a range past
+    the table's axis tests the clamp.  With the probe shapes they run every
+    path of gather.take2d_vec (rows and axis1 with one and four outputs a
+    chunk, axis0 with one) on ragged row counts, ragged widths and rows
+    wider than a block."""
+    return (
+        ('K7', 'axis0', (1280, 128), (1280, 128), (0, 1280), 0, 0),
+        ('K6', 'axis1', (2048, 1024), (2048, 128), (0, 1024), 0, 0),
+        (None, 'rows', (4096, 128), (2048,), (0, 4096), 0, 0),
+        (None, 'rows', (4096, 8), (RAGGED,), (0, 4096), 0, 0),
+        (None, 'axis0', (4096, 8), (RAGGED, 8), (0, 4096), 0, 0),
+        (None, 'axis1', (RAGGED, 16), (RAGGED, 8), (0, 16), 0, 0),
+        (None, 'rows', (4096, 128), (4099,), (-3, 4099), 1, 0),
+        (None, 'rows', (4096, 99), (4099,), (-3, 4099), 0, 0),
+        (None, 'rows', (512, 2052), (1031,), (-3, 515), 0, 0),
+        (None, 'axis0', (4096, 99), (4099, 99), (-3, 4099), 0, 0),
+        (None, 'axis0', (4096, 8), (4099, 8), (-3, 4099), 0, 1),
+        (None, 'axis0', (4096, 8), (4099, 8), (-3, 4099), 1, 0),
+        (None, 'axis1', (1031, 2048), (1031, 8), (-3, 2051), 0, 0),
+        (None, 'axis1', (1031, 2048), (1031, 7), (-3, 2051), 0, 0),
+        (None, 'axis1', (2048, 1024), (2048, 128), (-3, 1027), 1, 0),
+        (None, 'axis1', (2048, 1024), (2048, 128), (-3, 1027), 0, 1),
+        (None, 'axis1', (2048, 1024), (2048, 127), (-3, 1027), 0, 0),
+        (None, 'axis1', (4099, 99), (4099, 99), (-3, 102), 0, 0),
+        (None, 'axis1', (257, 4096), (257, 2050), (-3, 4099), 0, 0))
+
+
 def probe_kernel_cases(rng, dev, gen):
     """Cases of every probe kernel at the TPU probe scripts' shapes (B =
     2^17 lanes) and at a ragged B = 100003.  A case that stands for a TPU
@@ -421,18 +463,16 @@ def probe_kernel_cases(rng, dev, gen):
             + (f'_offset{offset}' if offset else ''), gather.gather_row_sum,
             gather.gather_row_sum_ref, randint(rows, b), tab, row=row,
             cost=row_sum_cost, library=row_sum_library)
-    for row, (mode, tab, idx, hi) in zip(('K7', 'K6', None, None, None,
-                                          None), (
-            ('axis0', (1280, 128), (1280, 128), 1280),
-            ('axis1', (2048, 1024), (2048, 128), 1024),
-            ('rows', (4096, 128), (2048,), 4096),
-            ('rows', (4096, 8), (RAGGED,), 4096),
-            ('axis0', (4096, 8), (RAGGED, 8), 4096),
-            ('axis1', (RAGGED, 16), (RAGGED, 8), 16))):
-        add('take2d', f'{mode}_tab{tab}_idx{idx}'.replace(' ', ''),
-            gather.take2d, gather.take2d_ref, randint(hi, *idx),
-            randn(*tab), mode, row=row, cost=take2d_cost,
-            library=take2d_library)
+    for row, mode, tab, idx, (lo, hi), t_off, i_off in take2d_cases():
+        t = randn(math.prod(tab) + t_off)[t_off:].view(tab)
+        i = torch.randint(lo, hi, (math.prod(idx) + i_off,), generator=gen,
+                          device=dev, dtype=torch.int32)[i_off:].view(idx)
+        add('take2d', f'{mode}_tab{tab}_idx{idx}'.replace(' ', '')
+            + (f'_range{lo},{hi}' if lo else '')
+            + (f'_taboffset{t_off}' if t_off else '')
+            + (f'_idxoffset{i_off}' if i_off else ''),
+            gather.take2d, gather.take2d_ref, i, t, mode, row=row,
+            cost=take2d_cost, library=take2d_library)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     for row, n in zip(('K5', None), (limit // 4, 12345)):
         add('smem_stage', f'n{n}', gather.smem_stage, gather.smem_stage_ref,
@@ -634,6 +674,9 @@ def run(args, dev):
                            n_photon_effective=res.n_photon_effective)
     log('# solve: ' + json.dumps(report['solve']))
 
+    # ---- 5b. independent g-points ----
+    independent_phase(args, dev, atm, ab, scene_kw, st, res, report)
+
     # ---- 4b. flux path ----
     flux_phase(args, dev, atm, ab, scene_kw, scene, st, report)
 
@@ -700,6 +743,78 @@ def run(args, dev):
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def independent_phase(args, dev, atm, ab, scene_kw, st, corr, report):
+    """Phase 5b: solve(spectral='independent') on the bench scene, the
+    protocol of bench.py's noise phase (see the module docstring); ``corr``
+    is phase 5's correlated result."""
+    passes = []
+    flight = solver.run_transport_flight
+
+    def timed(*a, **kw):
+        """One per-g pass (one chunk), its wall, steps and photons."""
+        t0 = time.perf_counter()
+        tal = flight(*a, **kw)
+        passes.append(dict(photons=int(tal.n_launched),
+                           steps=int(tal.n_steps),
+                           wall_s=time.perf_counter() - t0))
+        return tal
+    reset_counts()
+    solver.run_transport_flight = timed
+    try:
+        t0 = time.perf_counter()
+        res = solve(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
+                    spectral='independent', photons=INDEP_PHOTONS, n_run=2,
+                    batch=BATCH, tile_size=16, qmc_launch=False,
+                    n_scat_max=600, seed=args.seed + 7, mode='all',
+                    device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        solver.run_transport_flight = flight
+    counts = launch_counts()
+    ng = st.ng
+    steps = sum(p['steps'] for p in passes)
+    check(len(passes) == 2 * ng, f'{len(passes)} per-g passes, not 2 x {ng}')
+    check(counts['phase_pair'] == steps,
+          f'phase_pair launched {counts["phase_pair"]} times in {steps} '
+          f'steps of the per-g passes')
+    check(res.n_photon_effective == 2 * INDEP_PHOTONS,
+          f'launched {res.n_photon_effective} photons of 2 x {INDEP_PHOTONS}')
+    rad = np.asarray(res['rad'])
+    check(rad.shape == (st.nx, st.ny) and np.isfinite(rad).all()
+          and (rad >= 0).all(), 'independent solve: rad not a finite (nx, '
+                                'ny) image >= 0')
+    check(len(res.runs) == 2, 'mode=all kept no runs')
+    total = float(smooth_diffusion(rad, 1).sum())
+    total_err = abs(total / float(rad.sum()) - 1)
+    check(total_err <= 1e-9, f'diffusion changed the image total by '
+                             f'{total_err:.3g}')
+    runs = []
+    for r in range(2):
+        part = passes[r * ng:(r + 1) * ng]
+        w = sum(p['wall_s'] for p in part)
+        n = sum(p['photons'] for p in part)
+        runs.append(dict(wall_s=w, steps=sum(p['steps'] for p in part),
+                         photons=n, photons_per_s=n / w))
+        log(f'# independent run {r}: ' + json.dumps(runs[-1]))
+    var_i = float(np.mean(res.std['rad_std'] ** 2)) * INDEP_PHOTONS
+    var_c = float(np.mean(corr.std['rad_std'] ** 2)) * SOLVE_PHOTONS
+    report['independent'] = dict(
+        wall_s=wall, steps=steps, phase_pair_launches=counts['phase_pair'],
+        launches=counts, runs=runs, passes=passes,
+        n_photon_effective=res.n_photon_effective,
+        diffusion_total_rel_err=total_err,
+        domain_mean=against_ref('independent-g domain-mean radiance',
+                                float(rad.mean()), REF_RUN_MEANS, REF_PHOTONS,
+                                2 * INDEP_PHOTONS, 0.01),
+        noise_var_ratio_indep_over_corr=var_i / var_c,
+        noise_var_ratio_note=(
+            'two-run estimate: mean per-pixel rad_std^2 times photons per '
+            f'run, 2 x {INDEP_PHOTONS} independent (qmc_launch off) over '
+            f'phase 5\'s 2 x {SOLVE_PHOTONS} correlated (qmc_launch on)'))
+    log('# independent g: ' + json.dumps(
+        {k: v for k, v in report['independent'].items() if k != 'passes'}))
 
 
 def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):

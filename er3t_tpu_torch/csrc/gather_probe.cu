@@ -17,14 +17,15 @@
 // VMEM, one-hot MXU products, 128-lane shuffles, lane blocks that divide B)
 // has no role here.  The tables are read in place through the read-only
 // path (__ldg) and live in L1/L2; blocks of 256 threads with a masked
-// ragged end take any size.  take2d and take_reps are one thread per
-// output element; gather_row_sum reads a row with one thread or with a
-// group of lanes.  Each kernel's note says what bounds it
-// and what its design does about it.  Every index is clamped (or, for
-// take_reps, wrapped as the TPU kernel wraps it) into its table, so no input
-// can read outside a table.  Sums run in a fixed, documented order with no
-// FMA, so each kernel equals its plain PyTorch version
-// (er3t_tpu_torch/probes/gather.py) bit for bit, whatever path it takes.
+// ragged end take any size.  take_reps is one thread per output element;
+// gather_row_sum reads a row with one thread or with a group of lanes;
+// take2d gives each output row a group of lanes, one kernel per mode.  Each
+// kernel's note says what bounds it and what its design does about it.
+// Every index is clamped (or, for take_reps, wrapped as the TPU kernel wraps
+// it) into its table, so no input can read outside a table.  Sums run in a
+// fixed, documented order with no FMA, so each kernel equals its plain
+// PyTorch version (er3t_tpu_torch/probes/gather.py) bit for bit, whatever
+// path it takes.
 
 #include "common.cuh"
 
@@ -166,29 +167,100 @@ __global__ void gather_row_sum_kernel(const int* __restrict__ idx,
   if (own < n) out[own] = res;
 }
 
-// out[i, j] = tab[r, c] for an (n_i, n_j) output:
-//   mode 0 (rows):  r = idx[i],    c = j       (idx (n_i,), n_j = tab_cols)
-//   mode 1 (axis0): r = idx[i, j], c = j       (idx (n_i, n_j))
-//   mode 2 (axis1): r = i,         c = idx[i, j]
-__global__ void take2d_kernel(const int* __restrict__ idx,
-                              const float* __restrict__ tab,
-                              float* __restrict__ out, int mode, int n_i,
-                              int n_j, int tab_rows, int tab_cols) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_i * n_j) return;
-  const int i = t / n_j;
-  const int j = t - i * n_j;
-  int r = i, c = j;
-  if (mode == 0) {
-    r = __ldg(idx + i);
-  } else if (mode == 1) {
-    r = __ldg(idx + t);
+// ---- take2d: K6 scripts/tpu_gather_probe2.py:63 (run_kernel), K7/K8
+// scripts/tpu_gather_probe3.py:58, scripts/tpu_gather_probe3b.py:58
+// (mosaic_form) ----
+//
+// out[i, j] = tab[r, c] for an (n_i, n_j) output, r and c clamped into the
+// (rows, cols) table:
+//   rows:  r = idx[i],    c = j          (idx (n_i,), n_j = cols)
+//   axis0: r = idx[i, j], c = j          (idx (n_i, n_j), n_j = cols)
+//   axis1: r = i,         c = idx[i, j]  (idx (n_i, n_j), n_i = rows)
+//
+// Bound on this card: not bytes (K6 moves 2 MB of indices and outputs and
+// touches 1 MB of its 8 MB table, all of it in L2 when launched back to
+// back) but the chain index load -> table load -> store behind the launch.
+// The first design ran one thread per output with a runtime mode switch and
+// a division t / n_j ahead of the first load.  Here each mode is its own
+// kernel, and a block of 256 threads is lanes x (256 / lanes): threadIdx.y
+// picks the output row i, threadIdx.x walks the row in chunks of V
+// consecutive outputs, one chunk a lane where the row has at most 256 (no
+// division anywhere).  V = 4 (an int4 index load, four gathers in flight, a
+// float4 store; rows: float4 copies) where the wrapper says so
+// (gather.take2d_vec: rows and axis1 with a row width that is a multiple
+// of 4 and 16-byte aligned indices, or table for rows), else V = 1.
+// Measured (PERF.md): the kernel per mode is what gains at K6; V = 4 ties
+// there and wins at probe 2's rows and axis1 (2048, 128) forms.  Measured
+// and removed: staging axis1's table rows in shared memory by cp.async
+// while the indices load (slower at every shape tried with V = 4), blocks
+// of 64 and 128 threads, and V = 4 for axis0 (slower at K7 than one output
+// a lane).  Every path is a copy, so each equals the plain version bit for
+// bit.
+
+template <int V>
+__device__ __forceinline__ void load_idx(const int* p, int (&v)[V]) {
+  if constexpr (V == 4) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
   } else {
-    c = __ldg(idx + t);
+    v[0] = __ldg(p);
   }
-  r = clampi(r, 0, tab_rows - 1);
-  c = clampi(c, 0, tab_cols - 1);
-  out[t] = __ldg(tab + (size_t)r * tab_cols + c);
+}
+
+// rows: every lane of a row reads the same index, then the row is copied
+// in chunks of V floats.
+template <int V>
+__global__ void __launch_bounds__(er3t::kThreads)
+    take2d_rows_kernel(const int* __restrict__ idx,
+                       const float* __restrict__ tab, float* __restrict__ out,
+                       int n_i, int rows, int cols) {
+  const int i = blockIdx.x * blockDim.y + threadIdx.y;
+  if (i >= n_i) return;
+  const int r = clampi(__ldg(idx + i), 0, rows - 1);
+  const float* src = tab + (size_t)r * cols;
+  float* dst = out + (size_t)i * cols;
+  const int chunks = cols / V;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    if constexpr (V == 4) {
+      reinterpret_cast<float4*>(dst)[c] =
+          __ldg(reinterpret_cast<const float4*>(src) + c);
+    } else {
+      dst[c] = __ldg(src + c);
+    }
+  }
+}
+
+// axis0 (AXIS 0) and axis1 (AXIS 1).
+template <int AXIS, int V>
+__global__ void __launch_bounds__(er3t::kThreads)
+    take2d_along_kernel(const int* __restrict__ idx,
+                        const float* __restrict__ tab,
+                        float* __restrict__ out, int n_i, int n_j, int rows,
+                        int cols) {
+  const int i = blockIdx.x * blockDim.y + threadIdx.y;
+  if (i >= n_i) return;
+  const size_t base = (size_t)i * n_j;
+  const int chunks = n_j / V;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    int id[V];
+    load_idx<V>(idx + base + c * V, id);
+    float v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      v[k] = AXIS == 0
+                 ? __ldg(tab + (size_t)clampi(id[k], 0, rows - 1) * cols +
+                         c * V + k)
+                 : __ldg(tab + (size_t)i * cols + clampi(id[k], 0, cols - 1));
+    }
+    if constexpr (V == 4) {
+      reinterpret_cast<float4*>(out + base)[c] =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      out[base + c] = v[0];
+    }
+  }
 }
 
 // One block stages the whole n-float table in dynamic shared memory, then
@@ -283,13 +355,43 @@ extern "C" int er3t_gather_row_sum(const void* idx, const void* tab,
   return (int)cudaGetLastError();
 }
 
+// mode 0 rows, 1 axis0, 2 axis1; vec 1 or 4 outputs a chunk (4: rows and
+// axis1 only, gather.take2d_vec).  A row gets a lane a chunk, rounded up
+// to a power of two, at most 256; a block holds 256 / lanes rows.
+// Refuses a vec whose mode, width or alignment does not allow it.
 extern "C" int er3t_take2d(const void* idx, const void* tab, void* out,
-                           int mode, int n_i, int n_j, int tab_rows,
-                           int tab_cols, void* stream) {
-  take2d_kernel<<<er3t::blocks_for((long long)n_i * n_j), er3t::kThreads, 0,
-                  (cudaStream_t)stream>>>((const int*)idx, (const float*)tab,
-                                          (float*)out, mode, n_i, n_j,
-                                          tab_rows, tab_cols);
+                           int mode, int n_i, int n_j, int rows, int cols,
+                           int vec, void* stream) {
+  const int width = mode == 0 ? cols : n_j;
+  const bool ok =
+      mode >= 0 && mode <= 2 &&
+      (vec == 1 || (vec == 4 && mode != 1 && width % 4 == 0 &&
+                    er3t::aligned16(mode == 0 ? tab : idx) &&
+                    er3t::aligned16(out)));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  int lanes = 1;
+  while (lanes < width / vec && lanes < er3t::kThreads) lanes <<= 1;
+  const int rpb = er3t::kThreads / lanes;
+  const dim3 block(lanes, rpb);
+  const int grid = (n_i + rpb - 1) / rpb;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int* i = (const int*)idx;
+  const float* t = (const float*)tab;
+  float* o = (float*)out;
+  if (mode == 0 && vec == 4) {
+    take2d_rows_kernel<4><<<grid, block, 0, s>>>(i, t, o, n_i, rows, cols);
+  } else if (mode == 0) {
+    take2d_rows_kernel<1><<<grid, block, 0, s>>>(i, t, o, n_i, rows, cols);
+  } else if (mode == 1) {
+    take2d_along_kernel<0, 1><<<grid, block, 0, s>>>(i, t, o, n_i, n_j, rows,
+                                                     cols);
+  } else if (vec == 4) {
+    take2d_along_kernel<1, 4><<<grid, block, 0, s>>>(i, t, o, n_i, n_j, rows,
+                                                     cols);
+  } else {
+    take2d_along_kernel<1, 1><<<grid, block, 0, s>>>(i, t, o, n_i, n_j, rows,
+                                                     cols);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,8 @@ from .._build import launch
 
 __all__ = ['take_reps', 'take_reps_ref', 'gather_row_sum',
            'gather_row_sum_ref', 'row_sum_lanes', 'take2d', 'take2d_ref',
-           'smem_stage', 'smem_stage_ref', 'noop', 'TAKE2D_MODES',
-           'ROW_SUM_LANES']
+           'take2d_vec', 'smem_stage', 'smem_stage_ref', 'noop',
+           'TAKE2D_MODES', 'ROW_SUM_LANES']
 
 TAKE2D_MODES = ('rows', 'axis0', 'axis1')
 _MAX = 2 ** 30          # every size a kernel indexes with 32-bit ints
@@ -160,9 +160,23 @@ def take2d_ref(idx, tab, mode):
     return torch.gather(tab, 1, torch.clamp(idx, 0, cols - 1).long())
 
 
-def take2d(idx, tab, mode):
+def take2d_vec(mode, n_j, cols, tab_ptr=0, idx_ptr=0):
+    """Outputs a thread handles per chunk on the card, for an output row of
+    ``n_j`` from a table of ``cols`` columns at address ``tab_ptr`` with
+    indices at ``idx_ptr``: 4 for rows and axis1 where the row (``cols``
+    for rows, else ``n_j``) is a multiple of 4 and the array read in
+    16-byte pieces (rows: the table, axis1: the indices) starts 16-byte
+    aligned, else 1; axis0 always 1, the faster at K7 (PERF.md: 4 wins at
+    probe 2's rows and axis1 forms and ties at K6)."""
+    width = cols if mode == 'rows' else n_j
+    return 4 if mode != 'axis0' and width % 4 == 0 and (
+        tab_ptr if mode == 'rows' else idx_ptr) % 16 == 0 else 1
+
+
+def take2d(idx, tab, mode, _vec=None):
     """K6, and the take_along_axis forms of K7/K8: see :func:`take2d_ref`.
-    ``tab`` is (R, C) f32, ``idx`` int32."""
+    ``tab`` is (R, C) f32, ``idx`` int32.  ``_vec`` (default
+    :func:`take2d_vec`) only for the design sweep of ``gather_probe``."""
     dev = idx.device
     if mode not in TAKE2D_MODES:
         raise ValueError(f'take2d: mode must be one of {TAKE2D_MODES}')
@@ -184,9 +198,12 @@ def take2d(idx, tab, mode):
         raise ValueError('take2d: output must have below 2^30 elements')
     if dev.type == 'cpu':
         return take2d_ref(idx, tab, mode)
+    if _vec is None:
+        _vec = take2d_vec(mode, n_j, cols, tab.data_ptr(), idx.data_ptr())
     out = torch.empty((n_i, n_j), dtype=torch.float32, device=dev)
     _launch(take2d, 'take2d', dev, idx.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), TAKE2D_MODES.index(mode), n_i, n_j, rows, cols)
+            out.data_ptr(), TAKE2D_MODES.index(mode), n_i, n_j, rows, cols,
+            _vec)
     return out
 
 

@@ -15,8 +15,9 @@ tag, so TPU and GPU rows line up, plus ``"route"``:
   ``csrc/gather_probe.cu``; the phase pair of ``csrc/phase_pair.cu``),
   checked bit for bit against its plain version before it is timed (a
   mismatch raises), with the plain version's time beside it as
-  ``plain_ms`` (not in the design sweep of probe 1, ``row_sum_lanes``:
-  every lane count of ``gather_row_sum`` at widths 1-1024);
+  ``plain_ms`` (not in the design sweeps: probe 1's ``row_sum_lanes``,
+  every lane count of ``gather_row_sum`` at widths 1-1024, and probe 2's
+  ``take2d_plans``, one against four outputs a chunk of ``take2d``);
 * ``torch``: the scripts' XLA experiments, which are plain PyTorch ops here
   (``index_select``, ``index_add_``, ``matmul``, ``cumsum``, ``torch.rand``);
   the scatter-adds update their tally in place, as the port's image
@@ -69,6 +70,11 @@ NPF2, NM = 40, 4096             # eval phase table (working + TMS rows, bins)
 NPF, NU = 20, 8192              # sample phase table (rows, bins)
 # row widths of the gather_row_sum design sweep (the voxel table's is 5)
 SWEEP_WIDTHS = (1, 2, 3, 4, 5, 8, 16, 32, 64, 128, 256, 1024)
+# the take2d design sweep: (mode, table, indices, index bound) of K6 and
+# of the axis1 and rows forms of probe 2
+TAKE2D_SWEEP = (('axis1', (2048, 1024), (2048, 128), 1024),
+                ('axis1', (2048, 128), (2048, 128), 128),
+                ('rows', (4096, 128), (2048,), 4096))
 
 
 def card_line() -> str:
@@ -303,6 +309,20 @@ class _Probes:
                         per_launch_median30_ms=device_ms(fn, n=30,
                                                          per_launch=True))
 
+    def take2d_sweep(self):
+        """One against four outputs a chunk of take2d at K6's shapes and
+        at the axis1 and rows forms' (:data:`TAKE2D_SWEEP`).  Kernel times
+        only, each checked bitwise."""
+        for mode, tab_shape, idx_shape, idx_max in TAKE2D_SWEEP:
+            tab = self.randn(*tab_shape)
+            idx = self.randint(idx_max, *idx_shape)
+            for vec in (1, 4):
+                self.kernel('take2d_plans',
+                            lambda: take2d(idx, tab, mode, _vec=vec),
+                            lambda: take2d_ref(idx, tab, mode),
+                            time_plain=False, mode=mode, tab=list(tab_shape),
+                            idx=list(idx_shape), vec=vec)
+
     # ---- probe 2: scripts/tpu_gather_probe2.py ----
     def form(self, tag, mode, tab_shape, idx_shape, idx_max):
         tab = self.randn(*tab_shape)
@@ -325,6 +345,7 @@ class _Probes:
                 ('mosaic_take_rows_idx2d', 'rows', (4096, 128), (lb, 1),
                  4096)]:
             self.form(tag, mode, tab_shape, idx_shape, idx_max)
+        self.take2d_sweep()
 
         # part 2: in-loop marginal costs at the flight step's shapes
         nz, ng = 20, 16

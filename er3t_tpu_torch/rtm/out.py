@@ -1,5 +1,6 @@
-"""Spectral reduction of raw tallies to physical units (port of
-``er3t_tpu/rtm/out.py:47-106, 142-177``; NumPy, as in the reference).
+"""Spectral reduction of raw tallies to physical units, and the diffusion
+smoothing of fields (port of ``er3t_tpu/rtm/out.py:28-44, 47-106,
+142-177``; NumPy, as in the reference).
 
     factor(iz, ig) = sol_fac * solar(ig) * weight(ig) * slit(iz, ig)
                      / sum_g[weight * slit(iz, :)]
@@ -19,7 +20,7 @@ import numpy as np
 from ..physics.solar import sol_fac as _sol_fac
 
 __all__ = ['spectral_factors', 'reduce_flux', 'reduce_radiance',
-           'heating_rate', 'heating_rate_from_absorbed']
+           'heating_rate', 'heating_rate_from_absorbed', 'smooth_diffusion']
 
 _CP = 1004.0            # specific heat of dry air [J/kg/K]
 _RD = 287.0             # gas constant of dry air [J/kg/K]
@@ -27,6 +28,20 @@ _RD = 287.0             # gas constant of dry air [J/kg/K]
 
 def _host(t):
     return t.detach().cpu().numpy() if hasattr(t, 'detach') else t
+
+
+def smooth_diffusion(field, n_iter=1, axes=(0, 1)):
+    """``n_iter`` explicit diffusion steps of a noisy MC field over its
+    horizontal ``axes`` (periodic), each the 5-point stencil
+    f <- f/2 + (sum of the 4 neighbours)/8, in f64; the field total is
+    conserved (MCARaTS ``Flx_diff0/1``, ``Rad_difr0/1``)."""
+    f = np.asarray(field, dtype=np.float64).copy()
+    a0, a1 = axes
+    for _ in range(int(n_iter)):
+        nb = (np.roll(f, 1, axis=a0) + np.roll(f, -1, axis=a0)
+              + np.roll(f, 1, axis=a1) + np.roll(f, -1, axis=a1))
+        f = 0.5 * f + 0.125 * nb
+    return f
 
 
 def spectral_factors(abs_coef, date=None, nz_out: int | None = None):

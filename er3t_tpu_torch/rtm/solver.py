@@ -5,9 +5,13 @@
 transport passes split into chunks, and reduces the tallies to physical
 radiance, fluxes or heating rates with the mean and std over runs (the
 reference's MC-noise protocol).  It runs satellite radiance, flux and
-heating rate with the 3D solver, the flight engine and correlated
-g-points; every other option raises ``NotImplementedError`` naming its
-ROADMAP item.
+heating rate with the 3D solver and the flight engine, with correlated
+g-points or the reference's independent per-g protocol
+(``spectral='independent'``: one pass per g-point, the budget split by
+:func:`distribute_photon`), and smooths the mean fields with
+``diffusion``; :class:`Result` saves to and loads from the reference's
+HDF5 layout (``h5py``, imported only there).  Every other option raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Unlike the reference, a chunk that fails is not retried or skipped: the
 error propagates, so a fault on the card is never turned into a photon
@@ -26,7 +30,32 @@ from .mc import SolverConfig
 from .mc_flight import check_supported, run_transport_flight
 from .scene import build_scene
 
-__all__ = ['solve', 'Result']
+__all__ = ['solve', 'Result', 'distribute_photon', 'g_slice']
+
+
+def distribute_photon(n_photon, weights, base_ratio=0.05):
+    """Photon split over g-points by k-distribution weight with a floor,
+    at least one photon each when ``n_photon`` >= the g count (copy of
+    ``er3t_tpu/rtm/solver.py:29-51``, integer for integer)."""
+    weights = np.asarray(weights, dtype=np.float64)
+    nd = weights.size
+    dist = (n_photon * (1 - base_ratio) * weights).astype(np.int64) \
+        + int(n_photon * base_ratio / nd)
+    if n_photon >= nd:
+        # the truncated floor can leave a weak g-point with no photon (a
+        # pass with no estimate): give each at least one, taken from the
+        # heaviest bins
+        while (dist == 0).any():
+            dist[dist == 0] = 1
+            excess = int(dist.sum() - n_photon)
+            for _ in range(max(excess, 0)):
+                dist[np.argmax(dist)] -= 1
+    diff = int(n_photon - dist.sum())
+    if diff >= 0:
+        dist[np.argmin(weights)] += diff
+    else:
+        dist[np.argmax(weights)] += diff
+    return dist
 
 
 @dataclasses.dataclass
@@ -45,6 +74,52 @@ class Result:
 
     def __getitem__(self, k):
         return self.data[k]
+
+    def save_h5(self, fname, compression='gzip'):
+        """Write the reference's HDF5 layout (``er3t_tpu/rtm/solver.py:
+        80-106``): a dataset per mean and std field at the root, each run's
+        fields in a ``run_NN`` group, and the scalars as attributes; either
+        package loads the other's files."""
+        import h5py
+        with h5py.File(fname, 'w') as f:
+            for fields in (self.data, self.std):
+                _write_fields(f, fields, compression)
+            for r, fields in enumerate(self.runs):
+                _write_fields(f.create_group(f'run_{r:02d}'), fields,
+                              compression)
+            f.attrs['target'] = self.target
+            f.attrs['toa'] = self.toa
+            f.attrs['n_photon'] = self.n_photon
+            f.attrs['n_run'] = self.n_run
+            f.attrs['n_photon_effective'] = self.n_photon_effective
+
+    @classmethod
+    def load_h5(cls, fname):
+        """Read a file of :meth:`save_h5` (either package's)."""
+        import h5py
+        with h5py.File(fname, 'r') as f:
+            data = {k: f[k][...] for k in f
+                    if not k.endswith('_std') and not k.startswith('run_')}
+            std = {k: f[k][...] for k in f if k.endswith('_std')}
+            runs = [{k: f[name][k][...] for k in f[name]}
+                    for name in sorted(f) if name.startswith('run_')]
+            return cls(target=str(f.attrs['target']), data=data, std=std,
+                       toa=float(f.attrs['toa']),
+                       n_photon=float(f.attrs['n_photon']),
+                       n_run=int(f.attrs['n_run']),
+                       n_photon_effective=float(
+                           f.attrs.get('n_photon_effective', 0.0)),
+                       runs=runs)
+
+
+def _write_fields(group, fields, compression):
+    """One dataset per field: compressed arrays, plain scalars."""
+    for k, v in fields.items():
+        arr = np.asarray(v)
+        if arr.ndim > 0:
+            group.create_dataset(k, data=arr, compression=compression)
+        else:
+            group[k] = arr
 
 
 def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
@@ -122,13 +197,11 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         rr_wmin=float(rr_wmin), n_scat_max=int(n_scat_max),
         qmc_launch=bool(qmc_launch))
     check_supported(cfg, ipa)
-    for bad, msg in (
-            (spectral != 'correlated',
-             f'spectral={spectral!r}: the independent-g protocol is ROADMAP A9'),
-            (mesh is not None, 'multi-device runs (mesh=) are ROADMAP A12'),
-            (diffusion > 0, 'diffusion smoothing is ROADMAP A9')):
-        if bad:
-            raise NotImplementedError('er3t_tpu_torch solve: ' + msg)
+    if mesh is not None:
+        raise NotImplementedError('er3t_tpu_torch solve: multi-device runs '
+                                  '(mesh=) are ROADMAP A12')
+    if spectral not in ('correlated', 'independent'):
+        raise ValueError(spectral)
 
     scene, static = build_scene(
         atm, abs_coef, cld=cld, pha=pha, aer_1ds=aer_1ds, aer_3ds=aer_3ds,
@@ -151,6 +224,13 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     per_run = []
     n_eff = 0
     for r in range(n_run):
+        if spectral == 'independent':
+            red, n_l = _independent_g_run(
+                scene, static, cfg, abs_coef, target, int(photons), mu0, date,
+                seed + 1000 * r, device, chunk=chunk)
+            n_eff += n_l
+            per_run.append(red)
+            continue
         rad_t, flux_t, absd, n_l = _single_run(
             scene, static, cfg, int(photons), seed + 1000003 * r, device,
             chunk=chunk, flux_w=flux_w, rad_w=rad_w)
@@ -161,17 +241,78 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         else:
             red = out.reduce_flux(flux_t, n_l, abs_coef, mu0, date=date,
                                   precontracted=flux_w is not None)
-            if target == 'heating_rate':
+            if target == 'heating_rate' and absd.size > 1:
                 # the direct absorbed-energy tally where the run kept one
-                # (domain-average tallies), else net-flux differencing
-                red['hr'] = (out.heating_rate_from_absorbed(
+                # (domain-average tallies)
+                red['hr'] = out.heating_rate_from_absorbed(
                     absd, n_l, abs_coef, mu0, atm, date=date)
-                    if absd.size > 1 else out.heating_rate(red, atm))
         per_run.append(red)
+    if target == 'heating_rate':
+        # net-flux differencing where there is no direct tally (per-column
+        # tallies, the independent protocol), per run, so that hr_std and
+        # the runs of mode='all' carry it (reference :408-414)
+        for p in per_run:
+            if 'hr' not in p:
+                p['hr'] = out.heating_rate(p, atm)
 
     keys = [k for k in per_run[0] if k != 'toa']
     data = {k: np.mean([p[k] for p in per_run], axis=0) for k in keys}
     std = {k + '_std': np.std([p[k] for p in per_run], axis=0) for k in keys}
+    if diffusion > 0:
+        # numerical-diffusion smoothing of the mean per-column fields only
+        # (MCARaTS Flx_diff0/1, Rad_difr0/1; reference :421-427)
+        for k in list(data):
+            arr = np.asarray(data[k])
+            if arr.ndim >= 2 and arr.shape[0] > 1 and arr.shape[1] > 1:
+                data[k] = out.smooth_diffusion(arr, diffusion)
     return Result(target=target, data=data, std=std, toa=per_run[0]['toa'],
                   n_photon=photons, n_run=n_run, n_photon_effective=n_eff,
                   runs=(per_run if mode == 'all' else []))
+
+
+def g_slice(scene, static, g):
+    """The one-g-point scene of g-point ``g``: ``kabs`` (Nz, Ng) cut to its
+    column g, made contiguous (a column of a row-major tensor is a strided
+    view), and ``ng`` = 1, so the flight kernel keeps (2, B) ``labs``."""
+    return (scene._replace(kabs=scene.kabs[:, g:g + 1].contiguous()),
+            dataclasses.replace(static, ng=1))
+
+
+def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
+                       date, seed, device, chunk=4_000_000):
+    """The reference's per-g protocol (``er3t_tpu/rtm/solver.py:434-505``,
+    satellite radiance and flux): one pass per g-point, ``seed + g``, with
+    ``distribute_photon``'s share of the budget; each pass runs ng = 1 and
+    contracts in the step with unit weights; its tallies, over its own
+    launched count, are gathered in f64 into (Nx, Ny, Ng) and (Nxf, Nyf,
+    Nlev, 3, Ng) and reduced as one launched photon.  Returns the reduced
+    fields and the photons launched."""
+    ng = abs_coef.ng
+    dist = distribute_photon(n_photon, abs_coef.weight)
+    if (dist <= 0).any():
+        raise ValueError(
+            f'independent-protocol runs need photons >= ng ({ng}) so every '
+            f'g-point gets a non-empty pass; got {n_photon}')
+    # unit-weight contraction in the step: exact for ng = 1
+    rad_w1 = np.ones(1, np.float32) if target == 'radiance' else None
+    flux_w1 = (np.ones((static.nz + 1, 1), np.float32)
+               if target != 'radiance' and cfg.flux_per_column
+               and cfg.flux_kcross > 0 else None)
+    acc_rad = acc_flux = None
+    n_total = 0
+    for g in range(ng):
+        scene_g, static_g = g_slice(scene, static, g)
+        rad_t, flux_t, _, n_l = _single_run(
+            scene_g, static_g, cfg, int(dist[g]), seed + g, device,
+            chunk=chunk, flux_w=flux_w1, rad_w=rad_w1)
+        n_total += n_l
+        wsc = 1.0 / max(n_l, 1)
+        if acc_rad is None:
+            acc_rad = np.zeros(rad_t.shape[:2] + (ng,), np.float64)
+            acc_flux = np.zeros(flux_t.shape[:4] + (ng,), np.float64)
+        acc_rad[..., g] = rad_t[..., 0] * wsc
+        acc_flux[..., g] = flux_t[..., 0] * wsc
+    if target == 'radiance':
+        return out.reduce_radiance(acc_rad, 1, abs_coef, mu0,
+                                   date=date), n_total
+    return out.reduce_flux(acc_flux, 1, abs_coef, mu0, date=date), n_total

@@ -48,12 +48,12 @@ def _small_scene(device):
 def _counting(fn, attr='launches'):
     """``fn`` whose every call adds one to the launch count it would add
     on the card."""
-    def shim(*a):
+    def shim(*a, **kw):
         name = attr
         if fn is pp.phase_pair and a[4].dtype == torch.bfloat16:
             name = 'launches_bf16'
         setattr(fn, name, getattr(fn, name) + 1)
-        return fn(*a)
+        return fn(*a, **kw)
     return shim
 
 
@@ -76,7 +76,8 @@ def rehearsal(monkeypatch, tmp_path):
     wide = ((0.0, 0.0), (100.0, 100.0))
     for name, value in (('BATCH', 1024), ('RAGGED', 1003),
                         ('PHOTONS', 20_000), ('WARM_PHOTONS', 4_000),
-                        ('SOLVE_PHOTONS', 4_000), ('FLUX_PHOTONS', 20_000),
+                        ('SOLVE_PHOTONS', 4_000), ('INDEP_PHOTONS', 8_000),
+                        ('FLUX_PHOTONS', 20_000),
                         ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', wide),
                         ('REF_RUN_MEANS', tuple(r[0] for r in wide)),
                         ('HR_REF_RUNS', tuple(r[0] for r in wide)),
@@ -125,6 +126,17 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert main['phase_pair_launches'] == main['steps'] > 0
     assert all(n == 0 for k, n in main['launches'].items()
                if k != 'phase_pair')
+    ind = report['independent']
+    assert len(ind['passes']) == 2 * 4 and len(ind['runs']) == 2
+    assert ind['phase_pair_launches'] == ind['steps'] == sum(
+        p['steps'] for p in ind['passes']) > 0
+    assert ind['n_photon_effective'] == 16_000
+    assert [r['photons'] for r in ind['runs']] == [8_000, 8_000]
+    assert all(r['photons_per_s'] > 0 for r in ind['runs'])
+    assert ind['diffusion_total_rel_err'] <= 1e-9
+    assert ind['domain_mean']['value'] > 0
+    assert ind['noise_var_ratio_indep_over_corr'] > 0
+    assert any(line.startswith('# independent run 1: ') for line in lines)
     flux = report['flux']
     assert flux['phase_pair_launches'] == flux['steps'] > 0
     assert flux['photons'] == 20_000 and flux['toa_direct_max_rel_err'] <= 1e-5

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from er3t_tpu_torch._build import CudaError, launch
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
@@ -218,6 +219,74 @@ def test_probe_kernel_equals_plain(cuda, case, b):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert torch.equal(out, ref(*args))
+
+
+def _take2d_case(k):
+    """Case k of chip_smoke's take2d cases, on the card (RAGGED = 100003):
+    its mode and its table and index views."""
+    _, mode, tab, idx, (lo, hi), t_off, i_off = chip_smoke.take2d_cases()[k]
+    rng = np.random.default_rng(11 + k)
+    t = torch.from_numpy(rng.normal(size=int(np.prod(tab)) + t_off)
+                         .astype(np.float32)).cuda()[t_off:].view(tab)
+    i = torch.from_numpy(rng.integers(lo, hi, int(np.prod(idx)) + i_off)
+                         .astype(np.int32)).cuda()[i_off:].view(idx)
+    return mode, t, i
+
+
+TAKE2D_IDS = ['{1}_tab{2[0]}x{2[1]}_idx{3}_range{4[0]},{4[1]}_off{5}{6}'
+              .format(*c).replace(' ', '') for c in chip_smoke.take2d_cases()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', range(len(TAKE2D_IDS)), ids=TAKE2D_IDS)
+def test_take2d_equals_plain_on_every_path(cuda, k):
+    """Every path of gather.take2d_vec (rows and axis1 with one or four
+    outputs a chunk, axis0 with one), ragged row counts and widths, rows
+    wider than a block, views off 16-byte alignment, indices out of range
+    at both ends: bitwise equal to the plain version."""
+    mode, t, i = _take2d_case(k)
+    before = gather.take2d.launches
+    out = gather.take2d(i, t, mode)
+    torch.cuda.synchronize()
+    assert gather.take2d.launches == before + 1
+    assert torch.equal(out, gather.take2d_ref(i, t, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('vec', [1, 4])
+@pytest.mark.parametrize('mode', ['rows', 'axis1'])
+def test_take2d_vector_widths_equal_plain_at_k6(cuda, mode, vec):
+    """One and four outputs a chunk, forced past the wrapper's rule, at
+    K6's shapes (rows: its table's rows, all 1024 columns)."""
+    rng = np.random.default_rng(12)
+    t = torch.from_numpy(rng.normal(size=(2048, 1024)).astype(np.float32))
+    shape = (2048, 128) if mode == 'axis1' else (2048,)
+    hi = 1024 if mode == 'axis1' else 2048
+    i = torch.from_numpy(rng.integers(-3, hi + 3, shape).astype(np.int32))
+    t, i = t.to(cuda), i.to(cuda)
+    out = gather.take2d(i, t, mode, _vec=vec)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather.take2d_ref(i, t, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode,vec,tab_off,idx_off', [
+    ('rows', 4, 1, 0), ('axis1', 4, 0, 1), ('axis0', 4, 0, 0),
+    ('axis1', 2, 0, 0)],
+    ids=['rows_vec4_misaligned_tab', 'axis1_vec4_misaligned_idx',
+         'axis0_vec4', 'vec2'])
+def test_take2d_entry_refuses_a_plan_that_does_not_hold(
+        cuda, mode, vec, tab_off, idx_off):
+    """The C entry returns an error, and launches nothing, for a vector
+    width that the mode or the alignment does not allow."""
+    t = torch.zeros(1024 * 128 + tab_off, device=cuda)[tab_off:].view(1024,
+                                                                      128)
+    i = torch.zeros(1024 * 128 + idx_off, dtype=torch.int32,
+                    device=cuda)[idx_off:].view(1024, 128)
+    out = torch.empty(1024, 128, device=cuda)
+    with pytest.raises(CudaError):
+        launch('take2d', cuda, i.data_ptr(), t.data_ptr(), out.data_ptr(),
+               gather.TAKE2D_MODES.index(mode), 1024, 128, 1024, 128, vec)
 
 
 ROW_WIDTHS = [1, 2, 3, 5, 31, 32, 33, 64, 100, 128, 200, 1024]

@@ -1,7 +1,9 @@
 """Closures of the port's flight kernel that the reference also passes:
-drain compaction is exact, the single-scatter anchor, and agreement with the
-independent native C++ solver.  Each mirrors a reference test (named in its
-docstring) with the port in place of er3t_tpu's kernel.
+drain compaction is exact, the single-scatter anchor, a surface map on its
+own coarser grid, the stratified launch, the in-step radiance contraction,
+and agreement with the independent native C++ solver.  Each mirrors a
+reference test (named in its docstring) with the port in place of
+er3t_tpu's kernel.
 """
 
 import numpy as np
@@ -10,10 +12,12 @@ import torch
 
 from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.abs import abs_synthetic
-from er3t_tpu.pre.cld import cld_gen_hom
+from er3t_tpu.pre.cld import cld_gen_hem, cld_gen_hom
+from er3t_tpu.pre.sfc import sfc_2d_gen
 from er3t_tpu.physics import rayleigh
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.mc_flight import run_transport_flight
+from er3t_tpu_torch.rtm.out import spectral_factors
 from er3t_tpu_torch.rtm.scene import build_scene, scene_from_numpy
 
 torch.set_num_threads(2)
@@ -65,6 +69,79 @@ def test_radiance_single_scatter_anchor(atm20):
     # first-order analytic is a lower bound; multiple scattering adds ~5-8%
     assert rad == pytest.approx(ss + sfc, rel=0.10)
     assert rad > ss + sfc
+
+
+def test_coarse_surface_grid_flight_kernel(atm20):
+    """tests/test_solver_modes.py:712-741: a surface map at half the
+    atmosphere's x resolution gives the same radiance (rtol 1e-6, one
+    generator seed) as the same field at full resolution, through the
+    independent-surface-grid branch of the port's flight kernel; the
+    bright half is brighter."""
+    ab = abs_synthetic(650.0, atm20)
+    cld = cld_gen_hom(nx=8, ny=8, dx=1.0, dy=1.0, cot0=4.0, cer0=10.0,
+                      cloud_base=1.0, cloud_top=3.0)
+    alb_coarse = np.linspace(0.05, 0.65, 4)[:, None].repeat(8, axis=1)
+    alb_fine = np.repeat(alb_coarse, 2, axis=0)          # (8, 8), same field
+    imgs = {}
+    for tag, alb in (('coarse', alb_coarse), ('fine', alb_fine)):
+        scn, st = build_scene(atm20, ab, cld=cld, surface=sfc_2d_gen(alb),
+                              solar_zenith_angle=30.0, device='cpu')
+        assert st.nxs == alb.shape[0]
+        cfg = SolverConfig(target='radiance', batch=1 << 12, n_scat_max=200)
+        t = run_transport_flight(scn, st, cfg, 60_000, 9, 'cpu')
+        imgs[tag] = t.rad.numpy() @ ab.weight / int(t.n_launched)
+    np.testing.assert_allclose(imgs['coarse'], imgs['fine'], rtol=1e-6)
+    img = imgs['coarse']
+    assert img[4:].mean() > 1.2 * img[:4].mean()
+
+
+def test_stratified_launch():
+    """tests/test_solver_modes.py:329-363: the stratified-jitter launch
+    (qmc_launch) is unbiased (2 %) and, with an overhead sun over a bright
+    surface, cuts the per-pixel variance of clear-sky nadir radiance below
+    a fifth of the uniform launch's (6 seeds each)."""
+    atm_f = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
+                                       np.arange(3.0, 20.1, 2.0)]))
+    ab = abs_synthetic(650.0, atm_f)
+    cld = cld_gen_hem(nx=24, ny=24, nz=3, dx=0.1, dy=0.1, dz=0.5,
+                      cloud_frac_tgt=0.0, radii=(0.3,), cot_scale=0.0,
+                      cloud_base=0.5, seed=3)
+    scene, st = build_scene(atm_f, ab, cld=cld, surface=0.8,
+                            solar_zenith_angle=0.0, device='cpu')
+    var, mean = {}, {}
+    for qmc in (False, True):
+        cfg = SolverConfig(target='radiance', batch=1 << 12, qmc_launch=qmc)
+        imgs = []
+        for k in range(6):
+            t = run_transport_flight(scene, st, cfg, 60_000, 20 + k, 'cpu')
+            imgs.append(t.rad.numpy().sum(-1) / int(t.n_launched))
+        imgs = np.stack(imgs)
+        mean[qmc] = imgs.mean()
+        var[qmc] = imgs.var(axis=0, ddof=1).mean()
+    assert mean[True] == pytest.approx(mean[False], rel=0.02)
+    assert var[True] < 0.2 * var[False]
+
+
+def test_scalar_radiance_contraction_exact():
+    """tests/test_solver_modes.py:366-392: the in-step contraction of the
+    image deposits (rad_w) equals the contraction after the run on the same
+    generator seed (rtol 2e-4, atol 1e-10)."""
+    atm_f = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
+                                       np.arange(3.0, 20.1, 1.0)]))
+    ab = abs_synthetic(650.0, atm_f, ng=4)
+    cld = cld_gen_hem(nx=16, ny=16, nz=4, dx=0.2, dy=0.2, dz=0.5,
+                      cloud_frac_tgt=0.3, radii=(0.4,), cot_scale=10.0,
+                      cloud_base=0.5, seed=3)
+    scn, st = build_scene(atm_f, ab, cld=cld, surface=0.1,
+                          solar_zenith_angle=30.0, device='cpu')
+    cfg = SolverConfig(target='radiance', batch=1 << 12, n_scat_max=200)
+    f, _ = spectral_factors(ab, nz_out=1)
+    t_g = run_transport_flight(scn, st, cfg, 30000, 9, 'cpu')
+    t_s = run_transport_flight(scn, st, cfg, 30000, 9, 'cpu', rad_w=f[0])
+    img_g = t_g.rad.numpy() @ f[0]
+    img_s = t_s.rad.numpy()[..., 0]
+    assert t_s.rad.shape[-1] == 1
+    np.testing.assert_allclose(img_s, img_g, rtol=2e-4, atol=1e-10)
 
 
 def test_radiance_cross_validation_native(monkeypatch, tmp_path):

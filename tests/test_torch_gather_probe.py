@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke
 from er3t_tpu_torch import _build
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
@@ -495,6 +496,78 @@ def test_take2d_rejects_mismatched_index_shapes(mode, idx_shape):
         gather.take2d(idx, torch.zeros(64, 8), mode)
 
 
+# outputs a chunk (gather.take2d_vec) of each take2d case of chip_smoke's
+# phase 6, at its own alignment (RAGGED = 100003)
+TAKE2D_VECS = [1, 4, 4, 4, 1, 4, 1, 1, 4, 1, 1, 1, 4, 1, 4, 1, 1, 1, 1]
+
+
+def _take2d_views(k):
+    """Zero views of case k of chip_smoke's take2d cases, on the CPU (an
+    allocation there is 64-byte aligned, so an offset view is not)."""
+    _, mode, tab, idx, _, t_off, i_off = chip_smoke.take2d_cases()[k]
+    t = torch.zeros(int(np.prod(tab)) + t_off)[t_off:].view(tab)
+    i = torch.zeros(int(np.prod(idx)) + i_off,
+                    dtype=torch.int32)[i_off:].view(idx)
+    return mode, t, i
+
+
+@pytest.mark.parametrize('k', range(len(TAKE2D_VECS)))
+def test_take2d_plan_at_the_chip_smoke_cases(k):
+    """The dispatch rule is a pure function of shapes and addresses: at
+    each phase-6 case it gives the vector width written above."""
+    mode, t, i = _take2d_views(k)
+    n_j = t.shape[1] if mode == 'rows' else i.shape[1]
+    assert gather.take2d_vec(mode, n_j, t.shape[1], t.data_ptr(),
+                             i.data_ptr()) == TAKE2D_VECS[k]
+
+
+def test_take2d_cases_cover_every_kernel_path():
+    """rows and axis1 with one and four outputs a chunk, axis0 with one;
+    rows of more chunks than a block has threads (256) in each mode that
+    allows them."""
+    cases = chip_smoke.take2d_cases()
+    paths = {(cases[k][1], vec) for k, vec in enumerate(TAKE2D_VECS)}
+    assert paths == {('rows', 1), ('rows', 4), ('axis0', 1), ('axis1', 1),
+                     ('axis1', 4)}
+    width = [tab[1] if mode == 'rows' else idx[1]
+             for _, mode, tab, idx, *_ in cases]
+    wide = {cases[k][1] for k, vec in enumerate(TAKE2D_VECS)
+            if width[k] // vec > 256}
+    assert wide == {'rows', 'axis1'}
+
+
+@pytest.mark.parametrize('shape,vec', [
+    (('axis1', 128, 1024, 0, 0), 4),        # K6
+    (('axis1', 128, 1024, 4, 0), 4),        # table: no matter
+    (('axis1', 128, 1024, 0, 8), 1),        # idx off 16 B
+    (('axis1', 126, 1024, 0, 0), 1),        # 126 % 4
+    (('axis1', 4096, 8192, 0, 0), 4),       # 1024 chunks
+    (('axis0', 128, 128, 0, 0), 1),         # K7
+    (('axis0', 5, 5, 0, 0), 1),
+    (('rows', 128, 128, 0, 4), 4),          # idx: no matter
+    (('rows', 128, 128, 4, 0), 1),
+    (('rows', 5, 5, 0, 0), 1),
+    (('rows', 1, 1, 0, 0), 1)])
+def test_take2d_plan_rule(shape, vec):
+    """Four outputs a chunk for rows and axis1 where the row width is a
+    multiple of 4 and what is read in 16-byte pieces is 16-byte aligned
+    (rows: the table, axis1: the indices), never for axis0."""
+    assert gather.take2d_vec(*shape) == vec
+
+
+def test_take2d_plan_is_plain_on_the_cpu():
+    """A forced vector width changes nothing on CPU tensors: the plain
+    version runs and no launch is counted."""
+    rng = _rng(10)
+    tab = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-2, 18, (64, 8)).astype(np.int32))
+    before = gather.take2d.launches
+    for vec in (1, 4):
+        assert torch.equal(gather.take2d(idx, tab, 'axis1', _vec=vec),
+                           gather.take2d_ref(idx, tab, 'axis1'))
+    assert gather.take2d.launches == before
+
+
 def test_plain_versions_clamp_and_wrap_out_of_range_indices():
     """A kernel must never read outside a table: take_reps wraps an index as
     jnp's % does (floor modulo), the others clamp it, like JAX's gathers."""
@@ -551,7 +624,13 @@ def test_probe_entry_point_runs_every_experiment_on_plain_versions(
         assert tags.count(tag) == 2, tag               # probes 3 and 3b
     kern = [r for r in recs if r['route'] == 'cuda' and 'ms' in r]
     assert kern and all('plain_ms' in r for r in kern
-                        if r['probe'] != 'row_sum_lanes')
+                        if r['probe'] not in ('row_sum_lanes',
+                                              'take2d_plans'))
+    assert [(r['mode'], r['tab'], r['vec']) for r in recs
+            if r['probe'] == 'take2d_plans'] == [
+        ('axis1', [2048, 1024], 1), ('axis1', [2048, 1024], 4),
+        ('axis1', [2048, 128], 1), ('axis1', [2048, 128], 4),
+        ('rows', [4096, 128], 1), ('rows', [4096, 128], 4)]
     sweep = [(r['tab_rows'], r['width'], r['lanes']) for r in recs
              if r['probe'] == 'row_sum_lanes']
     assert sweep == [(921600 * 5 // max(w, 5), w, n)

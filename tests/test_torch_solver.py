@@ -71,11 +71,11 @@ def test_spectral_reduction_equals_reference(case, date):
 
 
 @pytest.mark.parametrize('bad', [
-    dict(target='flux', flux_engine='marching'),
-    dict(target='heating_rate', spectral='independent'), dict(solver='ipa'),
+    dict(target='flux', flux_engine='marching'), dict(solver='ipa'),
     dict(solver='p3d'), dict(sensor_type='camera'), dict(camera={'npix': 8}),
-    dict(spectral='independent'), dict(cf_dtau=0.5), dict(pathlength=True),
-    dict(split_wmax=2.0), dict(mesh='x-slab mesh'), dict(diffusion=1)],
+    dict(spectral='independent', sensor_type='camera'),
+    dict(spectral='independent', pathlength=True), dict(cf_dtau=0.5),
+    dict(pathlength=True), dict(split_wmax=2.0), dict(mesh='x-slab mesh')],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_solve_refuses_unported_options(case, bad):
     with pytest.raises(NotImplementedError, match='ROADMAP A'):
