@@ -45,6 +45,26 @@ Phases (any failure raises and the exit code is non-zero):
    photons x 2 runs: hr finite and >= 0, its column integral within 5 % of
    the same runs' net-flux convergence, and within max(2 %, 4 sigma) of
    the JAX reference below;
+7. the other solvers, sensors and knobs of the flight engine, on the same
+   scene, each run with every launch count set to 0 just before it and
+   phase_pair launched once per flight step of it, its wall, steps and
+   photons/s printed: (a) solve(solver='ipa') and solve(solver='p3d',
+   p3d_order=1), 2e6 photons x 2 runs, domain means against the JAX
+   references below; IPA flux (run_transport_flight, per-column tallies,
+   flux_kcross=4, flux_w, 2e6 photons): TOA down-direct = toa * mu0 in every
+   column, surface f_down and TOA f_up against the JAX references; (b) the
+   ground all-sky camera (solve's default dict, rad_w) and an airborne
+   down-looking camera with a 50 m aperture and pathlength=True (per-g
+   image), 2e6 photons x 2 runs each: the NaN mask is
+   reduce_camera_radiance's, the mean over the finite pixels (and the
+   airborne camera's mean pathlength) against the JAX references, and
+   phase_pair bitwise against its plain version on inputs captured from
+   the airborne run; (c) run_transport_flight with the production config
+   and, one run of 2e6 photons each, cf_dtau=0.5, split_wmax=0.5,
+   rr_value=0.1, sort_every=8 with launch_coherent, and none of them (the
+   steps and rate the knobs are read against): each is unbiased, so each
+   domain mean must lie within max(1 %, 4 sigma) of the radiance
+   reference;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -75,6 +95,7 @@ steps are profiled (keys "profile" and "profile_flux").
 """
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -94,8 +115,9 @@ from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
 from er3t_tpu_torch.rtm import mc_flight, solver
 from er3t_tpu_torch.rtm.mc import SolverConfig
-from er3t_tpu_torch.rtm.out import (reduce_flux, reduce_radiance,
-                                    smooth_diffusion, spectral_factors)
+from er3t_tpu_torch.rtm.out import (reduce_camera_radiance, reduce_flux,
+                                    reduce_radiance, smooth_diffusion,
+                                    spectral_factors)
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
 from er3t_tpu_torch.rtm.scene import build_scene
 from er3t_tpu_torch.rtm.solver import solve
@@ -200,6 +222,87 @@ HR_REF_RUNS = (0.02967642165666477,
                0.029721125940496265)
 HR_REF_PHOTONS = 1_000_000
 
+# Phase 7 through the front door: per run of 1e6 photons, the domain-mean
+# radiance of IPA and of partial 3D (order 1), the mean over the finite
+# pixels of the ground all-sky camera (solve's default dict) and of the
+# airborne down-looking camera with an aperture and pathlength, and that
+# camera's mean pathlength over pixels with a tally; the JAX package on the
+# CPU (use_pallas=False, batch 2^15):
+MODES_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np
+from er3t_tpu.pre.atm import atm_atmmod
+from er3t_tpu.pre.abs import abs_synthetic
+from er3t_tpu.pre.cld import cld_gen_hem
+from er3t_tpu.pre.pha import pha_mie_wc
+from er3t_tpu.rtm.solver import solve
+levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
+atm = atm_atmmod(levels)
+ab = abs_synthetic(650.0, atm)
+cld = cld_gen_hem(nx=480, ny=480, nz=4, dx=0.1, dy=0.1, dz=0.5,
+                  cloud_frac_tgt=0.25, radii=(0.5, 1.0, 2.0),
+                  cot_scale=15.0, cloud_base=0.5, seed=7)
+kw = dict(atm=atm, abs_coef=ab, cld=cld, pha=pha_mie_wc(650.0),
+          surface=0.03, solar_zenith_angle=30.0, solar_azimuth_angle=45.0,
+          forward_trunc_deg=25.0, target='radiance', photons=1e6, n_run=4,
+          batch=1 << 15, tile_size=16, qmc_launch=True, n_scat_max=600,
+          seed=0, mode='all')
+air = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
+for name, extra in (('ipa', dict(solver='ipa')),
+                    ('p3d', dict(solver='p3d', p3d_order=1)),
+                    ('camera', dict(sensor_type='camera')),
+                    ('camera_air', dict(camera=air, pathlength=True))):
+    for r in solve(**kw, **extra).runs:
+        plen = r.get('plen', np.zeros(1))
+        print(name, float(np.nanmean(r['rad'])),
+              float(plen[plen > 0].mean()) if (plen > 0).any() else 0.0)
+EOF"""
+MODES_REF_RUNS = {     # per run: (mean radiance, mean pathlength [m])
+    'ipa': ((0.06927789002656937, 0.0), (0.0690339133143425, 0.0),
+            (0.06896418333053589, 0.0), (0.06887272745370865, 0.0)),
+    'p3d': ((0.07222498208284378, 0.0), (0.07210193574428558, 0.0),
+            (0.07211039960384369, 0.0), (0.07216016948223114, 0.0)),
+    'camera': ((0.017507478885760354, 0.0), (0.017104320761002247, 0.0),
+               (0.017157568659033517, 0.0), (0.01801203185555233, 0.0)),
+    'camera_air': ((0.05499704595583791, 34784.71713647215),
+                   (0.05615859906025672, 34857.61376241776),
+                   (0.057914764535777125, 35142.85007092319),
+                   (0.05637038252701924, 35000.58027528278))}
+MODES_REF_PHOTONS = 1_000_000
+
+# Phase 7, IPA flux: the domain means of the surface f_down and the TOA f_up
+# with per-column tallies, flux_kcross=4 and flux_w on the IPA scene (the
+# bench scene's static with ipa=True), the JAX package on the CPU
+# (use_pallas=False, batch 2^15), one pair per seed of 1e6 photons:
+IPA_FLUX_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import dataclasses
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, bench
+from er3t_tpu.rtm.mc import SolverConfig
+from er3t_tpu.rtm.mc_flight import run_transport_flight
+from er3t_tpu.rtm.out import spectral_factors, reduce_flux
+ab, scene, st = bench.build()
+st = dataclasses.replace(st, ipa=True)
+cfg = SolverConfig(target='flux', batch=1 << 15, n_scat_max=600,
+                   tile_size=16, use_pallas=False, qmc_launch=True,
+                   flux_per_column=True, flux_kcross=4)
+flux_w = spectral_factors(ab, nz_out=st.nz + 1)[0]
+mu0 = float(np.cos(np.deg2rad(30.0)))
+for seed in range(4):
+    tal = run_transport_flight(scene, st, cfg, 1_000_000, seed=seed,
+                               flux_w=flux_w)
+    f = reduce_flux(np.asarray(tal.flux), int(tal.n_launched), ab, mu0,
+                    precontracted=True)
+    print(seed, f['f_down'][:, :, 0].mean(), f['f_up'][:, :, -1].mean())
+EOF"""
+IPA_FLUX_REF_RUNS = ((1.1676496, 0.22425501),
+                     (1.1676725, 0.22420432),
+                     (1.1676785, 0.22413625),
+                     (1.1678519, 0.22400805))
+IPA_FLUX_REF_PHOTONS = 1_000_000
+
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
 GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
@@ -226,6 +329,15 @@ SOLVE_PHOTONS = 1_000_000        # photons per run of the front door
 INDEP_PHOTONS = 2_000_000        # photons per run of the independent-g solve
 FLUX_PHOTONS = 4_000_000         # photons of the timed flux-path run
 HR_PHOTONS = 1_000_000           # photons per run of the heating-rate solve
+MODES_PHOTONS = 2_000_000        # photons per run of each phase-7 path
+AIR_CAMERA = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
+# phase 7 (c): split_wmax 0.5 (the reference's tests' value): the
+# production config's weights stay at or below 1, so a window of 2 would
+# split no lane
+KNOBS = {'cf_dtau': dict(cf_dtau=0.5), 'split_wmax': dict(split_wmax=0.5),
+         'rr_value': dict(rr_value=0.1),
+         'sort_coherent': dict(sort_every=8, launch_coherent=True),
+         'production': {}}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, HBM3
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 outside the
                                  # tensor cores
@@ -680,6 +792,10 @@ def run(args, dev):
     # ---- 4b. flux path ----
     flux_phase(args, dev, atm, ab, scene_kw, scene, st, report)
 
+    # ---- 7. the other solvers, sensors and knobs ----
+    max_err = max(max_err, modes_phase(args, dev, atm, ab, scene_kw, scene,
+                                       st, report))
+
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -729,6 +845,8 @@ def run(args, dev):
     pp_entry = entry('phase_pair', PP_SOURCE, PP_REPLACES, launches, max_err,
                      kt['bench_tables'])
     pp_entry['flux_launches'] = report['flux']['phase_pair_launches']
+    for name, rec in report['modes'].items():
+        pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name])
@@ -749,36 +867,14 @@ def independent_phase(args, dev, atm, ab, scene_kw, st, corr, report):
     """Phase 5b: solve(spectral='independent') on the bench scene, the
     protocol of bench.py's noise phase (see the module docstring); ``corr``
     is phase 5's correlated result."""
-    passes = []
-    flight = solver.run_transport_flight
-
-    def timed(*a, **kw):
-        """One per-g pass (one chunk), its wall, steps and photons."""
-        t0 = time.perf_counter()
-        tal = flight(*a, **kw)
-        passes.append(dict(photons=int(tal.n_launched),
-                           steps=int(tal.n_steps),
-                           wall_s=time.perf_counter() - t0))
-        return tal
-    reset_counts()
-    solver.run_transport_flight = timed
-    try:
-        t0 = time.perf_counter()
-        res = solve(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
-                    spectral='independent', photons=INDEP_PHOTONS, n_run=2,
-                    batch=BATCH, tile_size=16, qmc_launch=False,
-                    n_scat_max=600, seed=args.seed + 7, mode='all',
-                    device=dev)
-        wall = time.perf_counter() - t0
-    finally:
-        solver.run_transport_flight = flight
-    counts = launch_counts()
+    res, rec = path_run('independent g passes', lambda run: solve(
+        atm=atm, abs_coef=ab, **scene_kw, target='radiance',
+        spectral='independent', photons=INDEP_PHOTONS, n_run=2, batch=BATCH,
+        tile_size=16, qmc_launch=False, n_scat_max=600, seed=args.seed + 7,
+        mode='all', device=dev))
+    passes = rec['passes']
     ng = st.ng
-    steps = sum(p['steps'] for p in passes)
     check(len(passes) == 2 * ng, f'{len(passes)} per-g passes, not 2 x {ng}')
-    check(counts['phase_pair'] == steps,
-          f'phase_pair launched {counts["phase_pair"]} times in {steps} '
-          f'steps of the per-g passes')
     check(res.n_photon_effective == 2 * INDEP_PHOTONS,
           f'launched {res.n_photon_effective} photons of 2 x {INDEP_PHOTONS}')
     rad = np.asarray(res['rad'])
@@ -801,8 +897,9 @@ def independent_phase(args, dev, atm, ab, scene_kw, st, corr, report):
     var_i = float(np.mean(res.std['rad_std'] ** 2)) * INDEP_PHOTONS
     var_c = float(np.mean(corr.std['rad_std'] ** 2)) * SOLVE_PHOTONS
     report['independent'] = dict(
-        wall_s=wall, steps=steps, phase_pair_launches=counts['phase_pair'],
-        launches=counts, runs=runs, passes=passes,
+        wall_s=rec['wall_s'], steps=rec['steps'],
+        phase_pair_launches=rec['phase_pair_launches'],
+        launches=rec['launches'], runs=runs, passes=passes,
         n_photon_effective=res.n_photon_effective,
         diffusion_total_rel_err=total_err,
         domain_mean=against_ref('independent-g domain-mean radiance',
@@ -904,6 +1001,192 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
                                     HR_REF_RUNS, HR_REF_PHOTONS,
                                     2 * HR_PHOTONS, 0.02))
     log('# heating rate: ' + json.dumps(report['heating_rate']))
+
+
+def path_run(name, fn):
+    """Run ``fn(run)`` with every launch count set to 0 just before, where
+    ``run`` is solver.run_transport_flight with each flight pass timed
+    (solve's passes go through it too).  Checks that phase_pair, and no
+    other kernel, launched once per flight step; logs and returns (fn's
+    result, a record of the wall, steps, photons, photons/s, lane
+    iterations per photon, launch counts and passes)."""
+    passes = []
+    flight = solver.run_transport_flight
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        tal = flight(*a, **kw)
+        passes.append(dict(photons=int(tal.n_launched),
+                           steps=int(tal.n_steps),
+                           lane_iters=float(tal.lane_iters),
+                           wall_s=time.perf_counter() - t0))
+        return tal
+    reset_counts()
+    torch.cuda.synchronize()
+    solver.run_transport_flight = timed
+    try:
+        t0 = time.perf_counter()
+        out = fn(timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        solver.run_transport_flight = flight
+    counts = launch_counts()
+    steps = sum(p['steps'] for p in passes)
+    photons = sum(p['photons'] for p in passes)
+    check(steps > 0 and counts['phase_pair'] == steps,
+          f'{name}: phase_pair launched {counts["phase_pair"]} times in '
+          f'{steps} steps')
+    check(all(n == 0 for k, n in counts.items() if k != 'phase_pair'),
+          f'{name}: other kernels launched: {counts}')
+    rec = dict(wall_s=wall, steps=steps, photons=photons,
+               photons_per_s=photons / wall,
+               lane_iters_per_photon=sum(p['lane_iters'] for p in passes)
+               / photons,
+               phase_pair_launches=counts['phase_pair'], launches=counts,
+               passes=passes)
+    log(f'# {name}: ' + json.dumps(
+        {k: v for k, v in rec.items() if k != 'passes'}))
+    return out, rec
+
+
+def modes_phase(args, dev, atm, ab, scene_kw, scene, st, report):
+    """Phase 7: IPA, partial 3D, the cameras and the variance knobs on the
+    bench scene (see the module docstring).  Returns the largest
+    phase_pair |kernel - plain| on the camera-path inputs."""
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+    modes = report['modes'] = {}
+    common = dict(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
+                  photons=MODES_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
+                  qmc_launch=True, n_scat_max=600, mode='all', device=dev)
+
+    def ref_runs(name, i=0):
+        return [r[i] for r in MODES_REF_RUNS[name]]
+
+    # (a) IPA and partial 3D through the front door
+    for i, (name, extra) in enumerate((
+            ('ipa', dict(solver='ipa')),
+            ('p3d', dict(solver='p3d', p3d_order=1)))):
+        res, rec = path_run(f'phase 7 {name}', lambda run: solve(
+            **common, seed=args.seed + 8 + i, **extra))
+        rad = np.asarray(res['rad'])
+        check(rad.shape == (st.nx, st.ny) and np.isfinite(rad).all()
+              and (rad >= 0).all(), f'{name}: rad not a finite (nx, ny) '
+                                    f'image >= 0')
+        check(res.n_photon_effective == 2 * MODES_PHOTONS,
+              f'{name}: launched {res.n_photon_effective} photons')
+        rec['domain_mean'] = against_ref(
+            f'{name} domain-mean radiance', float(rad.mean()), ref_runs(name),
+            MODES_REF_PHOTONS, 2 * MODES_PHOTONS, 0.01)
+        modes[name] = rec
+
+    # (a) IPA flux: per-column crossings in the birth column
+    cfg = SolverConfig(target='flux', batch=BATCH, n_scat_max=600,
+                       tile_size=16, use_pallas=True, qmc_launch=True,
+                       flux_per_column=True, flux_kcross=4)
+    factors, toa = spectral_factors(ab, nz_out=st.nz + 1)
+    tal, rec = path_run('phase 7 ipa_flux', lambda run: run(
+        scene, dataclasses.replace(st, ipa=True), cfg, MODES_PHOTONS,
+        args.seed + 10, dev, flux_w=factors))
+    tally = tal.flux.cpu().numpy()
+    n_l = int(tal.n_launched)
+    check(n_l == MODES_PHOTONS and tally.shape == (st.nx, st.ny, st.nz + 1,
+                                                    3, 1)
+          and np.isfinite(tally).all() and (tally >= 0).all(),
+          f'ipa_flux: {n_l} photons, tally {tally.shape} not finite >= 0')
+    red = reduce_flux(tally, n_l, ab, mu0, precontracted=True)
+    toa_err = float(np.max(np.abs(red['f_down_direct'][:, :, -1]
+                                  / (toa * mu0) - 1)))
+    check(toa_err <= 1e-5, f'ipa_flux: TOA down-direct off toa * mu0 by '
+                           f'{toa_err}')
+    ref_sfc, ref_toa = zip(*IPA_FLUX_REF_RUNS)
+    rec.update(
+        toa_direct_max_rel_err=toa_err,
+        f_down_sfc=against_ref('IPA domain-mean surface f_down',
+                               float(red['f_down'][:, :, 0].mean()), ref_sfc,
+                               IPA_FLUX_REF_PHOTONS, MODES_PHOTONS, 0.01),
+        f_up_toa=against_ref('IPA domain-mean TOA f_up',
+                             float(red['f_up'][:, :, -1].mean()), ref_toa,
+                             IPA_FLUX_REF_PHOTONS, MODES_PHOTONS, 0.01))
+    modes['ipa_flux'] = rec
+
+    # (b) the ground all-sky camera, then the airborne one with its
+    # phase-pair inputs captured
+    captured = []
+    plain_pair = mc_flight.phase_pair
+
+    def capture(*a):
+        if len(captured) < 4 and phase_pair.launches % 25 == 0:
+            captured.append([t.clone() for t in a])
+        return plain_pair(*a)
+    area = (st.nx * st.dx) * (st.ny * st.dy)
+    for i, (name, extra) in enumerate((
+            ('camera', dict(sensor_type='camera')),
+            ('camera_air', dict(camera=AIR_CAMERA, pathlength=True)))):
+        if name == 'camera_air':
+            mc_flight.phase_pair = capture
+        try:
+            res, rec = path_run(f'phase 7 {name}', lambda run: solve(
+                **common, seed=args.seed + 11 + i, **extra))
+        finally:
+            mc_flight.phase_pair = plain_pair
+        cam = extra.get('camera', {})
+        npix, qmax = cam.get('npix', 64), cam.get('qmax', 89.0)
+        rad = np.asarray(res['rad'])
+        mask = np.isnan(reduce_camera_radiance(
+            np.ones((npix, npix, 1), np.float32), 1, ab, mu0, area, qmax,
+            precontracted=True)['rad'])
+        check(rad.shape == (npix, npix)
+              and np.array_equal(np.isnan(rad), mask)
+              and (rad[~mask] >= 0).all(),
+              f'{name}: image {rad.shape} without the fisheye NaN mask')
+        check(res.n_photon_effective == 2 * MODES_PHOTONS,
+              f'{name}: launched {res.n_photon_effective} photons')
+        rec['mean_finite'] = against_ref(
+            f'{name} mean radiance over the finite pixels',
+            float(np.nanmean(rad)), ref_runs(name), MODES_REF_PHOTONS,
+            2 * MODES_PHOTONS, 0.01)
+        if 'pathlength' in extra:
+            plen = float(np.mean([r['plen'][r['plen'] > 0].mean()
+                                  for r in res.runs]))
+            rec['mean_plen'] = against_ref(
+                f'{name} mean pathlength', plen, ref_runs(name, 1),
+                MODES_REF_PHOTONS, 2 * MODES_PHOTONS, 0.01)
+        modes[name] = rec
+    err = 0.0
+    check(len(captured) >= 2, f'{len(captured)} camera-path steps captured')
+    for i, a in enumerate(captured):
+        e, same = compare(phase_pair(*a), phase_pair_ref(*a))
+        err = max(err, e)
+        check(same, f'phase_pair kernel != plain on captured camera-path '
+              f'inputs #{i}: max |diff| {e}')
+    modes['camera_air']['k1_bitwise_steps'] = len(captured)
+    log(f'# phase_pair bitwise equal on {len(captured)} captured airborne '
+        f'camera steps')
+
+    # (c) the variance knobs on the production config
+    base = dict(target='radiance', batch=BATCH, n_scat_max=600, tile_size=16,
+                use_pallas=True, qmc_launch=True)
+    rad_w = spectral_factors(ab, nz_out=1)[0][0]
+    for i, (name, extra) in enumerate(KNOBS.items()):
+        tal, rec = path_run(f'phase 7 {name}', lambda run: run(
+            scene, st, SolverConfig(**base, **extra), MODES_PHOTONS,
+            args.seed + 13 + i, dev, rad_w=rad_w))
+        img = tal.rad.cpu().numpy()
+        n_l = int(tal.n_launched)
+        check(n_l == MODES_PHOTONS and img.shape == (st.nx, st.ny, 1)
+              and np.isfinite(img).all() and (img >= 0).all(),
+              f'{name}: {n_l} photons, image {img.shape} not finite >= 0')
+        rec['domain_mean'] = against_ref(
+            f'{name} domain-mean radiance',
+            float(reduce_radiance(img, n_l, ab, mu0,
+                                  precontracted=True)['rad'].mean()),
+            REF_RUN_MEANS, REF_PHOTONS, MODES_PHOTONS, 0.01)
+        modes[name] = rec
+    log('# phase 7: ' + json.dumps({k: {kk: vv for kk, vv in v.items()
+                                        if kk != 'passes'}
+                                    for k, v in modes.items()}))
+    return err
 
 
 def profile_steps(scene, st, cfg, dev, rad_w=None, flux_w=None):

@@ -65,13 +65,15 @@ class SolverConfig:
 
 class Tallies(NamedTuple):
     """Raw transport tallies, in photon-weight units (torch tensors)."""
-    rad: torch.Tensor             # (Nxr, Nyr, Ng), or (Nxr, Nyr, 1) with rad_w
+    rad: torch.Tensor             # (Nxr, Nyr, Ng), or (Nxr, Nyr, 1) with rad_w;
+    #                               (Nx, Ny) satellite, (npix, npix) camera
     flux: torch.Tensor            # (Nxf, Nyf, Nz+1, 3, Ng) level crossings,
     #                               channels (down-direct, down-diffuse, up);
     #                               (..., 1) with flux_w; zeros for radiance
     n_launched: torch.Tensor      # () int64
     n_steps: torch.Tensor         # () int64 loop steps
-    rad_plen: torch.Tensor        # pathlength-weighted radiance (unused: 0)
+    rad_plen: torch.Tensor        # (Nxr, Nyr, Ng) pathlength-weighted image
+    #                               with cfg.pathlength, else a 0-d zero
     lane_iters: torch.Tensor      # () float64 sum over steps of batch width
     absorbed: torch.Tensor        # (Nz, Ng) direct absorbed-energy tally of
     #                               domain-average flux runs (MCARaTS

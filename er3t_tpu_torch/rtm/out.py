@@ -1,16 +1,16 @@
 """Spectral reduction of raw tallies to physical units, and the diffusion
-smoothing of fields (port of ``er3t_tpu/rtm/out.py:28-44, 47-106,
-142-177``; NumPy, as in the reference).
+smoothing of fields (port of ``er3t_tpu/rtm/out.py:28-177``; NumPy, as in
+the reference).
 
     factor(iz, ig) = sol_fac * solar(ig) * weight(ig) * slit(iz, ig)
                      / sum_g[weight * slit(iz, :)]
 
 Raw tallies are per photon of unit weight launched at TOA, normalized to
 unit horizontal TOA solar flux: raw_flux = tally/N * mu0 (per column:
-times Nxf * Nyf) and raw_radiance = tally/N * mu0 * nx * ny.  Heating
-rates come from the direct absorbed-energy tally or from level net
-fluxes.  The camera reduction is not ported yet (ROADMAP A9).  A torch
-tensor given as a tally is copied to the host.
+times Nxf * Nyf) and raw_radiance = tally/N * mu0 * nx * ny; a camera
+tally is a flux at the sensor per fisheye pixel, over the pixel's solid
+angle.  Heating rates come from the direct absorbed-energy tally or from
+level net fluxes.  A torch tensor given as a tally is copied to the host.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ import numpy as np
 from ..physics.solar import sol_fac as _sol_fac
 
 __all__ = ['spectral_factors', 'reduce_flux', 'reduce_radiance',
-           'heating_rate', 'heating_rate_from_absorbed', 'smooth_diffusion']
+           'reduce_camera_radiance', 'heating_rate',
+           'heating_rate_from_absorbed', 'smooth_diffusion']
 
 _CP = 1004.0            # specific heat of dry air [J/kg/K]
 _RD = 287.0             # gas constant of dry air [J/kg/K]
@@ -74,6 +75,35 @@ def reduce_radiance(tally_rad, n_launched: int, abs_coef, mu0: float,
     raw = tally_rad * (mu0 * nx * ny / max(n_launched, 1))
     rad = raw[..., 0] if precontracted else raw @ factors[0]
     return {'rad': rad, 'toa': toa}
+
+
+def reduce_camera_radiance(tally_rad, n_launched, abs_coef, mu0,
+                           domain_area_m2, qmax_deg, date=None,
+                           precontracted=False):
+    """Physical fisheye radiance [W/m^2/nm/sr] from a raw (npix, npix, Ng)
+    camera tally: the photon normalization E mu0 A_domain / N, then each
+    pixel's solid angle under the equidistant projection; pixels outside
+    the fisheye circle are NaN.  Returns ``rad``, ``toa`` and
+    ``solid_angle``.  ``precontracted``: as in :func:`reduce_radiance`."""
+    tally_rad = _host(tally_rad)
+    nx, ny, ng = tally_rad.shape
+    factors, toa = spectral_factors(abs_coef, date=date, nz_out=1)
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing='ij')
+    px = (i + 0.5) / nx * 2 - 1
+    py = (j + 0.5) / ny * 2 - 1
+    pr = np.sqrt(px ** 2 + py ** 2)
+    qmax = np.deg2rad(qmax_deg)
+    theta = pr * qmax
+    inside = pr < 1.0
+    # dOmega = sin(theta) dtheta dphi, with pr = theta / qmax
+    with np.errstate(invalid='ignore', divide='ignore'):
+        sinc = np.where(pr > 1e-6, np.sin(theta) / np.maximum(pr, 1e-6), qmax)
+    d_omega = sinc * qmax * (2.0 / nx) * (2.0 / ny)
+    d_omega = np.where(inside, d_omega, np.nan)
+
+    raw = tally_rad * (mu0 * domain_area_m2 / max(n_launched, 1))
+    rad = (raw[..., 0] if precontracted else raw @ factors[0]) / d_omega
+    return {'rad': rad, 'toa': toa, 'solid_angle': d_omega}
 
 
 def reduce_flux(tally_flux, n_launched: int, abs_coef, mu0: float, date=None,

@@ -29,7 +29,8 @@ from ..pre.pha import PhaseTable, build_phase_table, pha_hg
 from ..pre.sfc import SFC_LAMBERTIAN, sfc_lambertian
 from ..util.grid import get_lay_index
 
-__all__ = ['SceneArrays', 'SceneStatic', 'build_scene', 'scene_from_numpy']
+__all__ = ['SceneArrays', 'SceneStatic', 'build_scene', 'scene_from_numpy',
+           'camera_rotation']
 
 
 class SceneArrays(NamedTuple):
@@ -302,3 +303,22 @@ def build_scene(atm, abs_coef, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     arrays = SceneArrays(**{f: torch.from_numpy(_canon(v)).to(device)
                             for f, v in leaves.items()})
     return arrays, static
+
+
+def camera_rotation(phi_deg, the_deg, psi_deg):
+    """Camera-frame -> world rotation, Z-Y-Z Euler (MCARaTS
+    Rad_phi/the/psi), built in f64 and returned as f32 (copy of
+    ``er3t_tpu/rtm/scene.py:353-369``); the flight kernel uses its
+    transpose (world -> camera)."""
+    cp, ct, cs = (np.deg2rad(phi_deg), np.deg2rad(the_deg),
+                  np.deg2rad(psi_deg))
+
+    def rz(a):
+        return np.array([[np.cos(a), -np.sin(a), 0.0],
+                         [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]])
+
+    def ry(a):
+        return np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                         [-np.sin(a), 0.0, np.cos(a)]])
+
+    return (rz(cp) @ ry(ct) @ rz(cs)).astype(np.float32)

@@ -4,14 +4,16 @@
 :func:`solve` builds a scene on the given device, runs ``n_run`` independent
 transport passes split into chunks, and reduces the tallies to physical
 radiance, fluxes or heating rates with the mean and std over runs (the
-reference's MC-noise protocol).  It runs satellite radiance, flux and
-heating rate with the 3D solver and the flight engine, with correlated
-g-points or the reference's independent per-g protocol
-(``spectral='independent'``: one pass per g-point, the budget split by
-:func:`distribute_photon`), and smooths the mean fields with
-``diffusion``; :class:`Result` saves to and loads from the reference's
-HDF5 layout (``h5py``, imported only there).  Every other option raises
-``NotImplementedError`` naming its ROADMAP item.
+reference's MC-noise protocol).  It runs radiance toward a satellite or a
+fisheye camera (with the mean pathlength ``plen`` if asked), flux and
+heating rate, with the 3D, partial-3D and IPA solvers of the flight engine
+and its variance knobs, with correlated g-points or the reference's
+independent per-g protocol (``spectral='independent'``: one pass per
+g-point, the budget split by :func:`distribute_photon`), and smooths the
+mean fields with ``diffusion``; :class:`Result` saves to and loads from
+the reference's HDF5 layout (``h5py``, imported only there).  The
+event-marching flux engine (ROADMAP A11) and multi-device runs (``mesh=``,
+ROADMAP A12) raise ``NotImplementedError``.
 
 Unlike the reference, a chunk that fails is not retried or skipped: the
 error propagates, so a fault on the card is never turned into a photon
@@ -126,8 +128,8 @@ def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
                 flux_w=None, rad_w=None):
     """One independent pass, split into chunks of at most ``chunk`` photons
     (chunks differ only by seed, ``seed + 7919 * i`` as in the reference).
-    Returns the summed image, flux and absorbed tallies on the host and
-    the launched count."""
+    Returns the summed image, flux, absorbed and pathlength-weighted image
+    tallies on the host and the launched count."""
     sums = None
     n_total = 0
     remaining = int(n_photon)
@@ -136,13 +138,36 @@ def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
         n_c = min(remaining, chunk)
         tal = run_transport_flight(scene, static, cfg, n_c, seed + 7919 * i,
                                    device, flux_w=flux_w, rad_w=rad_w)
-        parts = (tal.rad, tal.flux, tal.absorbed)
+        parts = (tal.rad, tal.flux, tal.absorbed, tal.rad_plen)
         sums = parts if sums is None else [a + b for a, b in zip(sums, parts)]
         n_total += int(tal.n_launched)
         remaining -= n_c
         i += 1
-    rad, flux, absorbed = (t.cpu().numpy() for t in sums)
-    return rad, flux, absorbed, n_total
+    rad, flux, absorbed, rad_pl = (t.cpu().numpy() for t in sums)
+    return rad, flux, absorbed, rad_pl, n_total
+
+
+def _plen_ratio(rad, rad_pl, w):
+    """Mean pathlength per pixel: the weight-contracted pathlength tally
+    over the contracted image, 0 where the image is 0 (reference
+    :392-397)."""
+    with np.errstate(invalid='ignore', divide='ignore'):
+        return np.where(rad @ w > 0, (rad_pl @ w) / np.maximum(rad @ w, 1e-30),
+                        0.0)
+
+
+def _reduce_image(rad_t, n_l, abs_coef, mu0, static, cfg, date,
+                  precontracted):
+    """The satellite or the camera reduction of a raw image."""
+    if cfg.sensor_type != 'camera':
+        return out.reduce_radiance(rad_t, n_l, abs_coef, mu0, date=date,
+                                   precontracted=precontracted)
+    red = out.reduce_camera_radiance(
+        rad_t, n_l, abs_coef, mu0,
+        domain_area_m2=(static.nx * static.dx) * (static.ny * static.dy),
+        qmax_deg=cfg.cam_qmax, date=date, precontracted=precontracted)
+    red.pop('solid_angle', None)
+    return red
 
 
 def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
@@ -165,7 +190,11 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     heating rate also ``hr`` (Nz,) [K/day]; each with its ``_std``.
     ``flux_per_column`` defaults to per-column tallies on 3D scenes, except
     for heating rate, whose direct absorbed-energy tally is domain-average
-    (reference :301-304)."""
+    (reference :301-304).  ``camera``: a dict of ``xpos``, ``ypos``,
+    ``zloc``, ``phi``, ``the``, ``psi``, ``qmax``, ``npix`` and ``apsize``
+    (any subset; the rest default as in the reference) selects the fisheye
+    camera, whose ``rad`` is (npix, npix) with NaN outside the fisheye
+    circle; ``pathlength`` adds ``plen`` to radiance results."""
     if mode not in ('mean', 'all'):
         raise ValueError(f"mode must be 'mean' or 'all'; got {mode!r}")
     if atm is None or abs_coef is None:
@@ -178,7 +207,14 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     if solver not in ('3d', 'p3d', 'ipa', '1d'):
         raise ValueError(f"solver must be '3d', 'p3d' or 'ipa'; got {solver!r}")
     ipa = solver in ('ipa', '1d')
+    cam = dict(xpos=0.5, ypos=0.5, zloc=0.0, phi=0.0, the=0.0, psi=0.0,
+               qmax=89.0, npix=64, apsize=0.0)
     if camera:
+        unknown = set(camera) - set(cam)
+        if unknown:
+            raise ValueError(f'unknown camera parameter(s) {sorted(unknown)}; '
+                             f'valid keys: {sorted(cam)}')
+        cam.update(camera)
         sensor_type = 'camera'
     device = torch.device(device)
     if batch is None:
@@ -195,8 +231,13 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         sensor_type=sensor_type, flux_engine=flux_engine,
         flux_kcross=int(flux_kcross), split_wmax=float(split_wmax),
         rr_wmin=float(rr_wmin), n_scat_max=int(n_scat_max),
+        cam_xpos=float(cam['xpos']), cam_ypos=float(cam['ypos']),
+        cam_zloc=float(cam['zloc']), cam_phi=float(cam['phi']),
+        cam_the=float(cam['the']), cam_psi=float(cam['psi']),
+        cam_qmax=float(cam['qmax']), cam_npix=int(cam['npix']),
+        cam_apsize=float(cam['apsize']),
         qmc_launch=bool(qmc_launch))
-    check_supported(cfg, ipa)
+    check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError('er3t_tpu_torch solve: multi-device runs '
                                   '(mesh=) are ROADMAP A12')
@@ -214,10 +255,12 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
 
     mu0 = float(np.cos(np.deg2rad(solar_zenith_angle)))
     # image deposits and clamped per-column crossings are contracted over g
-    # in the step (rad_w, flux_w), exactly equal to the contraction after
+    # in the step (rad_w, flux_w), exactly equal to the contraction after;
+    # not the image of a pathlength run, whose ratio needs every g
     rad_w = flux_w = None
     if target == 'radiance':
-        rad_w = out.spectral_factors(abs_coef, date=date, nz_out=1)[0][0]
+        if not pathlength:
+            rad_w = out.spectral_factors(abs_coef, date=date, nz_out=1)[0][0]
     elif cfg.flux_per_column and cfg.flux_kcross > 0:
         flux_w = out.spectral_factors(abs_coef, date=date,
                                       nz_out=static.nz + 1)[0]
@@ -231,13 +274,15 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
             n_eff += n_l
             per_run.append(red)
             continue
-        rad_t, flux_t, absd, n_l = _single_run(
+        rad_t, flux_t, absd, rad_pl, n_l = _single_run(
             scene, static, cfg, int(photons), seed + 1000003 * r, device,
             chunk=chunk, flux_w=flux_w, rad_w=rad_w)
         n_eff += n_l
         if target == 'radiance':
-            red = out.reduce_radiance(rad_t, n_l, abs_coef, mu0, date=date,
-                                      precontracted=True)
+            red = _reduce_image(rad_t, n_l, abs_coef, mu0, static, cfg, date,
+                                precontracted=rad_w is not None)
+            if pathlength:
+                red['plen'] = _plen_ratio(rad_t, rad_pl, abs_coef.weight)
         else:
             red = out.reduce_flux(flux_t, n_l, abs_coef, mu0, date=date,
                                   precontracted=flux_w is not None)
@@ -280,13 +325,14 @@ def g_slice(scene, static, g):
 
 def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
                        date, seed, device, chunk=4_000_000):
-    """The reference's per-g protocol (``er3t_tpu/rtm/solver.py:434-505``,
-    satellite radiance and flux): one pass per g-point, ``seed + g``, with
-    ``distribute_photon``'s share of the budget; each pass runs ng = 1 and
-    contracts in the step with unit weights; its tallies, over its own
-    launched count, are gathered in f64 into (Nx, Ny, Ng) and (Nxf, Nyf,
-    Nlev, 3, Ng) and reduced as one launched photon.  Returns the reduced
-    fields and the photons launched."""
+    """The reference's per-g protocol (``er3t_tpu/rtm/solver.py:434-505``):
+    one pass per g-point, ``seed + g``, with ``distribute_photon``'s share
+    of the budget; each pass runs ng = 1 and contracts in the step with
+    unit weights (not the image of a pathlength run); its tallies, over its
+    own launched count, are gathered in f64 into (Nxr, Nyr, Ng) images
+    and (Nxf, Nyf, Nlev, 3, Ng) fluxes and reduced as one launched photon,
+    the camera's with the camera reduction.  Returns the reduced fields
+    and the photons launched."""
     ng = abs_coef.ng
     dist = distribute_photon(n_photon, abs_coef.weight)
     if (dist <= 0).any():
@@ -294,15 +340,16 @@ def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
             f'independent-protocol runs need photons >= ng ({ng}) so every '
             f'g-point gets a non-empty pass; got {n_photon}')
     # unit-weight contraction in the step: exact for ng = 1
-    rad_w1 = np.ones(1, np.float32) if target == 'radiance' else None
+    rad_w1 = (np.ones(1, np.float32)
+              if target == 'radiance' and not cfg.pathlength else None)
     flux_w1 = (np.ones((static.nz + 1, 1), np.float32)
                if target != 'radiance' and cfg.flux_per_column
                and cfg.flux_kcross > 0 else None)
-    acc_rad = acc_flux = None
+    acc_rad = acc_flux = acc_pl = None
     n_total = 0
     for g in range(ng):
         scene_g, static_g = g_slice(scene, static, g)
-        rad_t, flux_t, _, n_l = _single_run(
+        rad_t, flux_t, _, rad_pl, n_l = _single_run(
             scene_g, static_g, cfg, int(dist[g]), seed + g, device,
             chunk=chunk, flux_w=flux_w1, rad_w=rad_w1)
         n_total += n_l
@@ -312,7 +359,14 @@ def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
             acc_flux = np.zeros(flux_t.shape[:4] + (ng,), np.float64)
         acc_rad[..., g] = rad_t[..., 0] * wsc
         acc_flux[..., g] = flux_t[..., 0] * wsc
+        if cfg.pathlength and target == 'radiance':
+            if acc_pl is None:
+                acc_pl = np.zeros_like(acc_rad)
+            acc_pl[..., g] = rad_pl[..., 0] * wsc
     if target == 'radiance':
-        return out.reduce_radiance(acc_rad, 1, abs_coef, mu0,
-                                   date=date), n_total
+        red = _reduce_image(acc_rad, 1, abs_coef, mu0, static, cfg, date,
+                            precontracted=False)
+        if cfg.pathlength:
+            red['plen'] = _plen_ratio(acc_rad, acc_pl, abs_coef.weight)
+        return red, n_total
     return out.reduce_flux(acc_flux, 1, abs_coef, mu0, date=date), n_total

@@ -30,6 +30,8 @@ LIMIT = 232448
 KEYS = {'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
         'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'floor_ms'}
 LIBRARY = {'take_reps', 'gather_row_sum', 'take2d', 'smem_stage'}
+PHASE7 = ('ipa', 'p3d', 'ipa_flux', 'camera', 'camera_air', 'cf_dtau',
+          'split_wmax', 'rr_value', 'sort_coherent', 'production')
 
 
 def _small_scene(device):
@@ -74,11 +76,15 @@ def rehearsal(monkeypatch, tmp_path):
     # the reference runs of the bench scene, replaced by a spread that
     # admits the 12x12 scene's means
     wide = ((0.0, 0.0), (100.0, 100.0))
+    wide_plen = ((0.0, 0.0), (100.0, 1e7))
     for name, value in (('BATCH', 1024), ('RAGGED', 1003),
                         ('PHOTONS', 20_000), ('WARM_PHOTONS', 4_000),
                         ('SOLVE_PHOTONS', 4_000), ('INDEP_PHOTONS', 8_000),
                         ('FLUX_PHOTONS', 20_000),
                         ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', wide),
+                        ('MODES_PHOTONS', 6_000), ('IPA_FLUX_REF_RUNS', wide),
+                        ('MODES_REF_RUNS', dict.fromkeys(
+                            chip_smoke.MODES_REF_RUNS, wide_plen)),
                         ('REF_RUN_MEANS', tuple(r[0] for r in wide)),
                         ('HR_REF_RUNS', tuple(r[0] for r in wide)),
                         ('OUT_JSON', str(tmp_path / 'chip_smoke.json')),
@@ -151,8 +157,25 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert hr['launches']['phase_pair'] > 0
     assert hr['column_absorbed']['value'] > 0
     assert kernels[0]['flux_launches'] == flux['steps']
+    modes = report['modes']
+    assert set(modes) == set(PHASE7)
+    for name, rec in modes.items():
+        assert rec['phase_pair_launches'] == rec['steps'] > 0, name
+        assert rec['photons'] == (12_000 if name in ('ipa', 'p3d', 'camera',
+                                                     'camera_air')
+                                  else 6_000), name
+        assert rec['photons_per_s'] > 0 and rec['passes'], name
+        assert kernels[0][f'{name}_launches'] == rec['steps'], name
+    for name in ('ipa', 'p3d', *chip_smoke.KNOBS):
+        assert modes[name]['domain_mean']['value'] > 0, name
+    assert modes['ipa_flux']['toa_direct_max_rel_err'] <= 1e-5
+    assert modes['camera']['mean_finite']['value'] > 0
+    assert modes['camera_air']['mean_plen']['value'] > 1e4
+    assert modes['camera_air']['k1_bitwise_steps'] >= 2
+    assert any(line.startswith('# phase 7 sort_coherent: ') for line in lines)
+    k1_keys = {'flux_launches'} | {f'{m}_launches' for m in PHASE7}
     for k in kernels:
-        assert set(k) == KEYS | ({'flux_launches'} if k['name'] == 'phase_pair'
+        assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
                                  else set()), k['name']
         assert k['launches'] > 0 and k['max_abs_err'] == 0.0, k['name']
         assert k['floor_ms'] == 1.0 and k['ms'] == k['plain_ms'] == 1.0

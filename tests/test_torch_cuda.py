@@ -7,6 +7,8 @@ import JAX, hence on such a machine:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -153,6 +155,74 @@ def test_flux_step_on_card_matches_cpu(cuda, per_col):
                 float(getattr(ref, f).double().sum()), rel=1e-4), (k, f)
         c = ref
     assert float(c.flux.sum()) > 0
+
+
+CARD_MODES = {
+    'ipa': dict(target='radiance'),
+    'p3d': dict(target='radiance', p3d_order=1),
+    'camera_air_pathlength': dict(
+        target='radiance', sensor_type='camera', cam_zloc=8000.0,
+        cam_the=180.0, cam_qmax=60.0, cam_npix=16, cam_apsize=50.0,
+        pathlength=True),
+    'camera_importance': dict(target='radiance', sensor_type='camera',
+                              cam_npix=16, cam_importance_sigma=500.0),
+    'split_rr_value': dict(target='radiance', split_wmax=0.5, rr_value=0.1),
+    'cf_dtau_kx0': dict(target='flux', flux_per_column=True, flux_kcross=0,
+                        cf_dtau=2.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', list(CARD_MODES))
+def test_mode_step_on_card_matches_cpu(cuda, mode):
+    """The solvers, sensors and knobs of the flight step: four steps of one
+    carry and deviates (the splitting and importance substreams included)
+    on the card and on the CPU; lane state as above (coordinates also to
+    4e-5 of a forced flight), tallies to 1e-4 of their totals, and one
+    phase pair launch per step."""
+    atm, ab, kw = _broken_inputs()
+    cfg = SolverConfig(batch=4096, n_scat_max=300, tile_size=16,
+                       qmc_launch=True, **CARD_MODES[mode])
+    kerns = {}
+    for d in ('cpu', cuda):
+        scene, st = build_scene(atm, ab, **kw, device=d)
+        if mode == 'ipa':
+            st = dataclasses.replace(st, ipa=True)
+        kerns[d] = mc_flight.FlightKernel(scene, st, cfg, 60000)
+    rng = np.random.default_rng(3)
+    c = kerns['cpu'].carry0(4096)
+    scale = {'x': 6400.0, 'y': 6400.0, 'z': 20000.0}
+    for k in range(4):
+        u = torch.from_numpy(rng.uniform(1e-7, 1 - 1e-7, (18, 4096))
+                             .astype(np.float32))
+        extra = dict(u_split=u[14].contiguous(), u_imp=u[15:].contiguous())
+        on = mc_flight.FlightCarry(*[
+            v.to(cuda) if isinstance(v, torch.Tensor) else v for v in c])
+        before = phase_pair.launches
+        got = kerns[cuda].step(on, u[:14].to(cuda), 7,
+                               **{n: t.to(cuda) for n, t in extra.items()})
+        assert phase_pair.launches == before + 1
+        ref = kerns['cpu'].step(c, u[:14], 7, **extra)   # tallies grow in place
+        flight = (ref.plen - c.plen).abs()
+        for f in ('x', 'y', 'z'):
+            d = (getattr(got, f).cpu() - getattr(ref, f)).abs()
+            if f != 'z':
+                d = torch.minimum(d, scale[f] - d)
+            assert bool((d <= torch.clamp(4e-5 * flight,
+                                          min=1e-5 * scale[f])).all()), (k, f)
+        for f in ('ux', 'uy', 'uz', 'wsc', 'labs', 'tau', 'plen'):
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                       getattr(ref, f).numpy(),
+                                       rtol=1e-4, atol=1e-5)
+        for f in ('alive', 'nscat', 'direct', 'ix0', 'iy0'):
+            same = (getattr(got, f).cpu() == getattr(ref, f)).float().mean()
+            assert float(same) >= 0.999, (k, f)
+        assert int(got.launched) == int(ref.launched)
+        for f in ('rad', 'rad_pl', 'flux', 'absorbed'):
+            assert float(getattr(got, f).double().sum()) == pytest.approx(
+                float(getattr(ref, f).double().sum()), rel=1e-4), (k, f)
+        c = ref
+    assert float(c.rad.sum() + c.flux.sum()) > 0
 
 
 @pytest.mark.cuda

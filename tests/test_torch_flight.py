@@ -84,6 +84,7 @@ def _to_port(c):
     return tmf.FlightCarry(**lanes, launched=torch.tensor(int(c.launched)),
                            step=int(c.step),
                            rad=torch.from_numpy(np.array(c.rad)),
+                           rad_pl=torch.from_numpy(np.array(c.rad_pl)),
                            flux=torch.zeros(1, ng), absorbed=torch.zeros(1, 1))
 
 

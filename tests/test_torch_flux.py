@@ -7,7 +7,8 @@
    direct absorbed-energy tally.
 2. Whole runs agree statistically; the TOA down-direct entry exactly.
 3. The NumPy reductions equal the reference's.
-4. The options the flux path still refuses.
+4. The option the flux path still refuses, and short runs of those it
+   once refused (forcing, IPA, partial 3D) beside er3t_tpu's.
 """
 
 import dataclasses
@@ -26,6 +27,7 @@ from er3t_tpu.pre.cld import cld_gen_hem, cld_gen_hom
 from er3t_tpu.pre.pha import pha_mie_wc
 from er3t_tpu.rtm import mc_flight as jmf
 from er3t_tpu.rtm import out as jout
+from er3t_tpu.rtm import solver as jsolver
 from er3t_tpu.rtm.mc import SolverConfig as JConfig
 from er3t_tpu.rtm.scene import build_scene
 from er3t_tpu_torch.rtm import mc_flight as tmf
@@ -33,6 +35,8 @@ from er3t_tpu_torch.rtm import out as tout
 from er3t_tpu_torch.rtm import solver as tsolver
 from er3t_tpu_torch.rtm.mc import SolverConfig as TConfig
 from er3t_tpu_torch.rtm.scene import scene_from_numpy
+
+from test_torch_solver import same_result, unported
 
 torch.set_num_threads(2)
 B = 4096
@@ -76,6 +80,7 @@ def _to_port(c, kern):
     return tmf.FlightCarry(**lanes, launched=torch.tensor(int(c.launched)),
                            step=int(c.step),
                            rad=torch.from_numpy(np.array(c.rad)),
+                           rad_pl=torch.from_numpy(np.array(c.rad_pl)),
                            flux=torch.from_numpy(np.ascontiguousarray(flux)),
                            absorbed=torch.from_numpy(np.array(c.absorbed)))
 
@@ -213,18 +218,32 @@ def small_case():
     dict(target='flux', solver='p3d')],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_flux_refuses_unported_options(small_case, bad):
-    with pytest.raises(NotImplementedError, match='ROADMAP A'):
-        tsolver.solve(**small_case, photons=100, n_run=1, device='cpu', **bad)
+    """The marching engine raises naming ROADMAP A11; forcing, IPA and
+    partial 3D, once refused, run: a short solve of each
+    matches the reference's (test_torch_solver.same_result)."""
+    kw = dict(photons=2000, n_run=1, batch=1 << 10, seed=5, **bad)
+    if unported(bad):
+        with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+            tsolver.solve(**small_case, device='cpu', **kw)
+        return
+    same_result(tsolver.solve(**small_case, device='cpu', **kw),
+                jsolver.solve(**small_case, **kw))
 
 
 def test_flux_ipa_refused_by_the_flight_entry(small_case):
-    """IPA flux: the per-column crossing rows would come from the birth
-    column (reference :783-785, 887-889), which the port lacks."""
-    from er3t_tpu_torch.rtm.scene import build_scene as tbuild
+    """IPA flux through the flight entry, once refused: the
+    per-column crossings go to the birth column (reference :783-785,
+    887-889); a short run of both packages on one scene launches as many
+    photons and gives the same TOA down-direct flux in every column."""
     kw = {k: v for k, v in small_case.items() if k not in ('atm', 'abs_coef')}
-    scn, st = tbuild(small_case['atm'], small_case['abs_coef'], **kw,
-                     device='cpu')
-    cfg = TConfig(target='flux', batch=256, flux_per_column=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP A9'):
-        tmf.run_transport_flight(scn, dataclasses.replace(st, ipa=True), cfg,
-                                 100, 0, 'cpu')
+    scn, st = build_scene(small_case['atm'], small_case['abs_coef'], **kw)
+    st = dataclasses.replace(st, ipa=True)
+    cfg = dict(target='flux', batch=256, flux_per_column=True)
+    ref = jmf.run_transport_flight(scn, st, JConfig(**cfg), 2000, seed=0)
+    got = tmf.run_transport_flight(*scene_from_numpy(scn, st, 'cpu'),
+                                   TConfig(**cfg), 2000, 0, 'cpu')
+    assert int(got.n_launched) == int(ref.n_launched) == 2000
+    a, b = got.flux.numpy(), np.asarray(ref.flux)
+    assert a.shape == b.shape == (4, 4, st.nz + 1, 3, st.ng)
+    np.testing.assert_allclose(a[:, :, -1, 0], b[:, :, -1, 0], rtol=1e-6)
+    assert np.isfinite(a).all() and (a >= 0).all()

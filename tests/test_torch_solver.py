@@ -1,5 +1,6 @@
 """The port's front door (er3t_tpu_torch.rtm.solver.solve) and spectral
-reduction against er3t_tpu's, and the options the port refuses."""
+reduction against er3t_tpu's, the options the port refuses, and the
+options it once refused, each a short run beside er3t_tpu's."""
 
 import dataclasses
 import datetime
@@ -11,13 +12,16 @@ import torch
 from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.abs import abs_synthetic
 from er3t_tpu.pre.cld import cld_gen_hom
+from er3t_tpu.rtm import mc_flight as jmf
 from er3t_tpu.rtm import out as jout
 from er3t_tpu.rtm import solver as jsolver
+from er3t_tpu.rtm.mc import SolverConfig as JConfig
+from er3t_tpu.rtm.scene import build_scene as jbuild_scene
 from er3t_tpu_torch.rtm import out as tout
 from er3t_tpu_torch.rtm import solver as tsolver
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.mc_flight import run_transport_flight
-from er3t_tpu_torch.rtm.scene import build_scene
+from er3t_tpu_torch.rtm.scene import scene_from_numpy
 
 torch.set_num_threads(2)
 
@@ -70,6 +74,32 @@ def test_spectral_reduction_equals_reference(case, date):
         np.testing.assert_array_equal(c['rad'], b['rad'])
 
 
+# what the port still refuses, each naming its ROADMAP item
+UNPORTED = {'flux_engine': 'A11', 'mesh': 'A12'}
+
+
+def unported(bad):
+    """The ROADMAP item of a refused option in ``bad``, or None."""
+    return next((UNPORTED[k] for k in bad if k in UNPORTED), None)
+
+
+def same_result(got, ref):
+    """A short run of the port's solve against the reference's: the same
+    launched photons, toa, fields, shapes and NaN masks, finite where the
+    reference is; the TOA down-direct flux (deterministic) to 1e-6."""
+    assert got.n_photon_effective == ref.n_photon_effective
+    assert got.toa == ref.toa and got.target == ref.target
+    assert set(got.data) == set(ref.data) and set(got.std) == set(ref.std)
+    for k in ref.data:
+        a, b = np.asarray(got.data[k]), np.asarray(ref.data[k])
+        assert a.shape == b.shape, k
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=k)
+        assert np.isfinite(a[np.isfinite(b)]).all(), k
+    if 'f_down_direct' in ref.data:
+        np.testing.assert_allclose(got['f_down_direct'][..., -1],
+                                   ref['f_down_direct'][..., -1], rtol=1e-6)
+
+
 @pytest.mark.parametrize('bad', [
     dict(target='flux', flux_engine='marching'), dict(solver='ipa'),
     dict(solver='p3d'), dict(sensor_type='camera'), dict(camera={'npix': 8}),
@@ -78,8 +108,18 @@ def test_spectral_reduction_equals_reference(case, date):
     dict(pathlength=True), dict(split_wmax=2.0), dict(mesh='x-slab mesh')],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_solve_refuses_unported_options(case, bad):
-    with pytest.raises(NotImplementedError, match='ROADMAP A'):
-        tsolver.solve(**case, photons=100, n_run=1, device='cpu', **bad)
+    """The marching flux engine and mesh= raise NotImplementedError naming
+    ROADMAP A11 and A12.  The other cases, refused until IPA, partial 3D,
+    the camera, pathlength, forcing and splitting were ported, now run:
+    a short solve of each matches the reference's (same_result)."""
+    kw = dict(photons=2000, n_run=1, batch=1 << 10, seed=5, **bad)
+    item = unported(bad)
+    if item:
+        with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
+            tsolver.solve(**case, device='cpu', **kw)
+        return
+    same_result(tsolver.solve(**case, device='cpu', **kw),
+                jsolver.solve(**case, **kw))
 
 
 @pytest.mark.parametrize('bad', [
@@ -90,11 +130,32 @@ def test_solve_refuses_unported_options(case, bad):
     dict(cam_importance_sigma=1.0), dict(pathlength=True), dict(ipa=True)],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_flight_refuses_unported_options(case, bad):
+    """The flight entry refuses the marching flux engine (ROADMAP A11).
+    Every other option, once refused, runs: 2000 photons
+    through both packages' run_transport_flight on one scene launch
+    exactly as many photons, and give tallies of the same shapes, finite
+    and >= 0."""
     bad = dict(bad)
     ipa = bad.pop('ipa', False)
     kw = {k: v for k, v in case.items() if k not in ('atm', 'abs_coef')}
-    scn, st = build_scene(case['atm'], case['abs_coef'], **kw, device='cpu')
+    scn, st = jbuild_scene(case['atm'], case['abs_coef'], **kw)
     st = dataclasses.replace(st, ipa=ipa)
-    with pytest.raises(NotImplementedError, match='ROADMAP A'):
-        run_transport_flight(scn, st, SolverConfig(batch=256, **bad), 100, 0,
-                             'cpu')
+    if unported(bad):
+        with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+            run_transport_flight(*scene_from_numpy(scn, st, 'cpu'),
+                                 SolverConfig(batch=256, **bad), 100, 0, 'cpu')
+        return
+    if 'cam_importance_sigma' in bad:
+        bad['sensor_type'] = 'camera'
+    ref = jmf.run_transport_flight(scn, st, JConfig(batch=256, **bad), 2000,
+                                   seed=0)
+    got = run_transport_flight(*scene_from_numpy(scn, st, 'cpu'),
+                               SolverConfig(batch=256, **bad), 2000, 0, 'cpu')
+    assert int(got.n_launched) == int(ref.n_launched) == 2000
+    for f in ('rad', 'rad_plen', 'flux', 'absorbed'):
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(ref, f))
+        if f == 'flux':
+            b = b.reshape(a.shape)     # radiance: zeros of the same size
+        assert a.shape == b.shape, f
+        assert np.isfinite(a).all() and (a >= 0).all(), f
+    assert float(got.rad.sum()) > 0

@@ -289,61 +289,88 @@ def test_h5_files_load_in_the_other_package(tmp_path, writer):
             np.testing.assert_array_equal(got[k], ref[k])
 
 
-def _fake_tallies(static, n_photon, seed, target):
-    """Made-up tallies of one pass, a function of its photons and seed."""
+def _fake_tallies(static, cfg, n_photon, seed, rad_w, flux_w):
+    """Made-up tallies of one pass (image, flux, pathlength image), a
+    function of its photons and seed, in the shapes the pass would give."""
     rng = np.random.default_rng([n_photon, seed])
-    nxf, nyf = (static.nx, static.ny) if target == 'flux' else (1, 1)
-    rad = rng.uniform(0, n_photon, (static.nx, static.ny, 1)).astype(
-        np.float32)
-    flux = rng.uniform(0, n_photon, (nxf, nyf, static.nz + 1, 3, 1)).astype(
-        np.float32)
-    return rad, flux
+    flux_run = cfg.target != 'radiance'
+    nxf, nyf = ((static.nx, static.ny) if flux_run and cfg.flux_per_column
+                else (1, 1))
+    nxr, nyr = ((cfg.cam_npix, cfg.cam_npix) if cfg.sensor_type == 'camera'
+                else (static.nx, static.ny))
+    ng_r = 1 if rad_w is not None else static.ng
+    ng_f = 1 if flux_w is not None else static.ng
+    rad = rng.uniform(0, n_photon, (nxr, nyr, ng_r)).astype(np.float32)
+    flux = rng.uniform(0, n_photon, (nxf, nyf, static.nz + 1, 3, ng_f)
+                       ).astype(np.float32)
+    rad_pl = (rng.uniform(0, 3e4 * n_photon, (nxr, nyr, static.ng))
+              .astype(np.float32) if cfg.pathlength else np.zeros((), np.float32))
+    # a few empty pixels, where the mean pathlength is 0
+    rad[0, 0] = 0.0
+    return rad, flux, rad_pl
 
 
-@pytest.mark.parametrize('target', ['radiance', 'flux', 'heating_rate'])
+_CAMERA = dict(camera=dict(zloc=500.0, the=180.0, qmax=60.0, npix=6))
+
+
+@pytest.mark.parametrize('target,spectral,extra', [
+    pytest.param('radiance', 'independent', {}, id='radiance'),
+    pytest.param('flux', 'independent', {}, id='flux'),
+    pytest.param('heating_rate', 'independent', {}, id='heating_rate'),
+    pytest.param('radiance', 'independent', _CAMERA, id='camera'),
+    pytest.param('radiance', 'independent', dict(pathlength=True),
+                 id='pathlength'),
+    pytest.param('radiance', 'correlated', _CAMERA, id='correlated-camera'),
+    pytest.param('radiance', 'correlated', dict(pathlength=True),
+                 id='correlated-pathlength'),
+    pytest.param('radiance', 'correlated', dict(_CAMERA, pathlength=True),
+                 id='correlated-camera-pathlength')])
 def test_independent_protocol_equals_reference_on_the_same_tallies(
-        monkeypatch, atm, target):
+        monkeypatch, atm, target, spectral, extra):
     """With both packages' transport replaced by the same made-up tallies,
     solve(spectral='independent') calls it with the same photons, seeds,
     unit weights and g-sliced absorption, and reduces to the same fields,
-    bit for bit."""
+    bit for bit; so do the camera reduction and the pathlength ratio, of
+    both protocols."""
     ab = abs_synthetic(940.0, atm, ng=4)
     cld = cld_gen_hom(nx=4, ny=3, nz=2, dx=1.0, dy=1.0, cot0=6.0, cer0=10.0,
                       cloud_base=1.0, cloud_top=3.0)
     calls = {'port': [], 'reference': []}
 
-    def record(who, scene, static, n_photon, seed, flux_w, rad_w):
+    def record(who, scene, static, cfg, n_photon, seed, flux_w, rad_w):
         calls[who].append((int(n_photon), int(seed), static.ng,
                            np.asarray(scene.kabs).tolist(),
                            None if flux_w is None else np.asarray(flux_w).tolist(),
                            None if rad_w is None else np.asarray(rad_w).tolist()))
-        return _fake_tallies(static, n_photon, seed, cfg_target)
-
-    cfg_target = 'radiance' if target == 'radiance' else 'flux'
+        return _fake_tallies(static, cfg, n_photon, seed, rad_w, flux_w)
 
     def port_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
                  flux_w=None, rad_w=None):
         assert scene.kabs.is_contiguous()
-        rad, flux = record('port', scene, static, n_photon, seed, flux_w,
-                           rad_w)
-        return rad, flux, np.zeros((1, 1), np.float32), n_photon - 1
+        rad, flux, rad_pl = record('port', scene, static, cfg, n_photon, seed,
+                                   flux_w, rad_w)
+        return rad, flux, np.zeros((1, 1), np.float32), rad_pl, n_photon - 1
 
     def ref_run(scene, static, cfg, n_photon, seed, chunk=4_000_000,
                 mesh=None, flux_w=None, rad_w=None):
-        rad, flux = record('reference', scene, static, n_photon, seed,
-                           flux_w, rad_w)
-        return rad, flux, n_photon - 1, None, None
+        rad, flux, rad_pl = record('reference', scene, static, cfg, n_photon,
+                                   seed, flux_w, rad_w)
+        return rad, flux, n_photon - 1, rad_pl, None
 
     monkeypatch.setattr(solver, '_single_run', port_run)
     monkeypatch.setattr(jsolver, '_single_run', ref_run)
     kw = dict(atm=atm, abs_coef=ab, cld=cld, surface=0.1, target=target,
-              spectral='independent', solar_zenith_angle=30.0, photons=5000,
-              n_run=2, seed=9, batch=256, mode='all', diffusion=1)
+              spectral=spectral, solar_zenith_angle=30.0, photons=5000,
+              n_run=2, seed=9, batch=256, mode='all', diffusion=1, **extra)
     got = solver.solve(device='cpu', **kw)
     ref = jsolver.solve(**kw)
-    assert calls['port'] == calls['reference'] and len(calls['port']) == 8
+    n_pass = 8 if spectral == 'independent' else 2
+    assert calls['port'] == calls['reference'] and len(calls['port']) == n_pass
     assert got.n_photon_effective == ref.n_photon_effective
     assert got.toa == ref.toa
+    assert ('plen' in got.data) == ('pathlength' in extra)
+    if 'camera' in extra:
+        assert got['rad'].shape == (6, 6) and np.isnan(got['rad']).any()
     for a, b in [(got.data, ref.data), (got.std, ref.std)] + list(
             zip(got.runs, ref.runs)):
         assert set(a) == set(b)
@@ -360,6 +387,7 @@ def _to_port(c):
     return tmf.FlightCarry(**lanes, launched=torch.tensor(int(c.launched)),
                            step=int(c.step),
                            rad=torch.from_numpy(np.array(c.rad)),
+                           rad_pl=torch.from_numpy(np.array(c.rad_pl)),
                            flux=torch.zeros(1, ng), absorbed=torch.zeros(1, 1))
 
 
