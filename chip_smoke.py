@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (er3t_tpu_torch) on one NVIDIA GPU.
 
-    python chip_smoke.py                 # needs one CUDA card; ~1 min
+    python chip_smoke.py                 # needs one CUDA card; ~5 min
     python chip_smoke.py --profile       # also a torch.profiler window
 
 Phases (any failure raises and the exit code is non-zero):
@@ -65,6 +65,22 @@ Phases (any failure raises and the exit code is non-zero):
    steps and rate the knobs are read against): each is unbiased, so each
    domain mean must lie within max(1 %, 4 sigma) of the radiance
    reference;
+8. the event-marching engine and the quasi renderer, on the same scene
+   (batch 2^17, n_scat_max=600, 1e6 photons a pass), each path with every
+   launch count set to 0 just before it, phase_pair launched once per
+   marching step and no pass ended at its step cap (steps printed against
+   it): (a) mc.run_transport, flux with domain-average tallies (after a
+   warm-up run): TOA down-direct = toa * mu0, surface f_down and TOA f_up
+   against MARCH_FLUX_REF_RUNS; (b) nadir radiance: the domain mean
+   against MARCH_RAD_REF_RUNS, phase_pair bitwise against its plain
+   version on inputs captured from the run's steps (lanes on the TMS rows
+   among them); (c) solve(target='heating_rate', flux_engine='marching'),
+   2 runs, mode='all': hr finite with hr_std and per-run hr, the column-
+   absorbed power against MARCH_HR_REF_RUNS within max(2 %, 4 sigma);
+   (d) quasi_radiance for the ground all-sky and the airborne camera, 128
+   x 128 pixels, 512 steps: the NaN count, the g-weighted mean over the
+   finite pixels and the 16 block means within 1e-4 of QUASI_REF, the
+   worst of them named when it fails; its wall printed;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -90,8 +106,9 @@ over 3.35 TB/s and its float operations over 67 TFLOP/s.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
-build/chip_smoke.json.  With --profile, 20 radiance steps and 20 flux
-steps are profiled (keys "profile" and "profile_flux").
+build/chip_smoke.json (phase 8 under "march" and "quasi").  With
+--profile, 20 radiance steps and 20 flux steps are profiled (keys
+"profile" and "profile_flux").
 """
 
 import argparse
@@ -113,12 +130,13 @@ from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
-from er3t_tpu_torch.rtm import mc_flight, solver
+from er3t_tpu_torch.rtm import mc, mc_flight, solver
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import (reduce_camera_radiance, reduce_flux,
                                     reduce_radiance, smooth_diffusion,
                                     spectral_factors)
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
+from er3t_tpu_torch.rtm.quasi import quasi_radiance
 from er3t_tpu_torch.rtm.scene import build_scene
 from er3t_tpu_torch.rtm.solver import solve
 
@@ -303,6 +321,127 @@ IPA_FLUX_REF_RUNS = ((1.1676496, 0.22425501),
                      (1.1678519, 0.22400805))
 IPA_FLUX_REF_PHOTONS = 1_000_000
 
+# Phase 8, the event-marching engine on the bench scene (batch 2^17, the
+# chip run's batch, so the default step cap is the same, 2268 steps for 1e6
+# photons), the JAX package on the CPU: per seed of 1e6 photons, the domain
+# means of the surface f_down and the TOA f_up (domain-average tallies),
+# the steps and the cap:
+MARCH_FLUX_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, bench
+from er3t_tpu.rtm.mc import SolverConfig, run_transport
+from er3t_tpu.rtm.out import reduce_flux
+ab, scene, st = bench.build()
+cfg = SolverConfig(target='flux', batch=1 << 17, n_scat_max=600)
+cap = int(np.ceil(1_000_000 / cfg.batch + 1) * 4 * (st.nz + 40))
+mu0 = float(np.cos(np.deg2rad(30.0)))
+for seed in range(4):
+    tal = run_transport(scene, st, cfg, 1_000_000, seed=seed)
+    f = reduce_flux(np.asarray(tal.flux), int(tal.n_launched), ab, mu0)
+    print(seed, f['f_down'][:, :, 0].mean(), f['f_up'][:, :, -1].mean(),
+          int(tal.n_steps), cap, flush=True)
+EOF"""
+MARCH_FLUX_REF_RUNS = ((1.1847152869615953, 0.21220463376321377),
+                       (1.1855916079418027, 0.21126055263495644),
+                       (1.18531439193566, 0.21137238143706083),
+                       (1.1844998449645614, 0.212214525811758))
+MARCH_REF_STEPS = (968, 1025, 949, 1192)        # of 2268, in both commands
+# ... and the nadir radiance's domain mean, per seed of 1e6 photons (the
+# same seeds; the steps are the flux runs'):
+MARCH_RAD_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, bench
+from er3t_tpu.rtm.mc import SolverConfig, run_transport
+from er3t_tpu.rtm.out import reduce_radiance
+ab, scene, st = bench.build()
+cfg = SolverConfig(target='radiance', batch=1 << 17, n_scat_max=600)
+cap = int(np.ceil(1_000_000 / cfg.batch + 1) * 4 * (st.nz + 40))
+mu0 = float(np.cos(np.deg2rad(30.0)))
+for seed in range(4):
+    tal = run_transport(scene, st, cfg, 1_000_000, seed=seed)
+    print(seed, reduce_radiance(np.asarray(tal.rad), int(tal.n_launched), ab,
+                                mu0)['rad'].mean(), int(tal.n_steps), cap,
+          flush=True)
+EOF"""
+MARCH_RAD_REF_RUNS = (0.05507169406503296, 0.05472919302347306,
+                      0.054722368193741, 0.05515733452651616)
+# ... and the column-absorbed power of solve(target='heating_rate',
+# flux_engine='marching') on HR_REF_COMMAND's scene (the flux-divergence
+# heating rate), one per run of 1e6 photons:
+MARCH_HR_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np
+from er3t_tpu.pre.atm import atm_atmmod
+from er3t_tpu.pre.abs import abs_synthetic
+from er3t_tpu.pre.cld import cld_gen_hem
+from er3t_tpu.pre.pha import pha_mie_wc
+from er3t_tpu.rtm.solver import solve
+levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
+atm = atm_atmmod(levels)
+ab = abs_synthetic(650.0, atm)
+cld = cld_gen_hem(nx=480, ny=480, nz=4, dx=0.1, dy=0.1, dz=0.5,
+                  cloud_frac_tgt=0.25, radii=(0.5, 1.0, 2.0),
+                  cot_scale=15.0, cloud_base=0.5, seed=7)
+res = solve(atm=atm, abs_coef=ab, cld=cld, pha=pha_mie_wc(650.0),
+            surface=0.03, solar_zenith_angle=30.0, solar_azimuth_angle=45.0,
+            forward_trunc_deg=25.0, target='heating_rate',
+            flux_engine='marching', photons=1e6, n_run=4, batch=1 << 17,
+            n_scat_max=600, seed=0, mode='all')
+heat = atm.lay.pressure * 100.0 / (287.0 * atm.lay.temperature) * 1004.0 \\
+    * atm.lay.thickness * 1000.0
+for r in res.runs:
+    print(float(np.sum(r['hr'] / 86400.0 * heat)), flush=True)
+EOF"""
+MARCH_HR_REF_RUNS = (0.02387652126699913, 0.024062298594827558,
+                     0.02393851871618846, 0.02392769474335754)
+MARCH_REF_PHOTONS = 1_000_000
+
+# Phase 8 (d), quasi-radiance of the bench scene (deterministic) for the
+# ground all-sky camera (solve's default dict) and the airborne down-looking
+# one, 128 x 128 pixels, 512 steps, by the JAX package on the CPU: the NaN
+# count, the g-weighted mean over the finite pixels and the means of the
+# 4 x 4 blocks of 32 x 32 pixels (quasi_summary):
+QUASI_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, bench
+from er3t_tpu.rtm.mc import SolverConfig
+from er3t_tpu.rtm.quasi import quasi_radiance
+ab, scene, st = bench.build()
+for name, cam in (('camera', dict(cam_npix=128)),
+                  ('camera_air', dict(cam_npix=128, cam_zloc=8000.0,
+                                      cam_the=180.0, cam_qmax=60.0))):
+    img = np.asarray(quasi_radiance(scene, st, SolverConfig(
+        sensor_type='camera', **cam), n_steps=512)) @ ab.weight
+    blocks = img.reshape(4, 32, 4, 32).transpose(0, 2, 1, 3).reshape(16, -1)
+    print(name, int(np.isnan(img).sum()), float(np.nanmean(img)),
+          [float(v) for v in np.nanmean(blocks, axis=1)])
+EOF"""
+QUASI_REF = {   # camera: (NaN count, mean over finite pixels, 16 block means)
+    'camera': (3492, 0.009028928621928107, (
+        0.010117707866822898, 0.005561632098292719, 0.00700380431031483,
+        0.00546062216013816, 0.005577021379833097, 0.0039589372517372465,
+        0.006617031426850973, 0.01472790666359827, 0.006441888519822246,
+        0.004859743140536395, 0.00620680928039738, 0.014698073942355776,
+        0.007767876472125135, 0.010117251060053711, 0.020450122921873332,
+        0.02277594872645146)),
+    'camera_air': (3492, 0.01189888087050357, (
+        0.0068070139505528125, 0.007967116024840418, 0.006986347361594927,
+        0.007936937873541496, 0.01936939441059506, 0.012746279994438964,
+        0.009785910103655607, 0.00819124199596701, 0.017704373530432985,
+        0.01137159375035117, 0.012615537136434415, 0.007314561982653792,
+        0.012990124851116733, 0.01847228045050337, 0.014552781710481681,
+        0.0077786930705455015))}
+QUASI_CAMERAS = {'camera': {}, 'camera_air': dict(cam_zloc=8000.0,
+                                                  cam_the=180.0,
+                                                  cam_qmax=60.0)}
+QUASI_NPIX = 128
+QUASI_STEPS = 512
+QUASI_RTOL = 1e-4
+
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
 GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
@@ -330,6 +469,7 @@ INDEP_PHOTONS = 2_000_000        # photons per run of the independent-g solve
 FLUX_PHOTONS = 4_000_000         # photons of the timed flux-path run
 HR_PHOTONS = 1_000_000           # photons per run of the heating-rate solve
 MODES_PHOTONS = 2_000_000        # photons per run of each phase-7 path
+MARCH_PHOTONS = 1_000_000        # photons per run of each phase-8 path
 AIR_CAMERA = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
 # phase 7 (c): split_wmax 0.5 (the reference's tests' value): the
 # production config's weights stay at or below 1, so a window of 2 would
@@ -796,6 +936,11 @@ def run(args, dev):
     max_err = max(max_err, modes_phase(args, dev, atm, ab, scene_kw, scene,
                                        st, report))
 
+    # ---- 8. the marching engine and the quasi renderer ----
+    max_err = max(max_err, march_phase(args, dev, atm, ab, scene_kw, scene,
+                                       st, report))
+    quasi_phase(dev, ab, scene, st, report)
+
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -845,7 +990,7 @@ def run(args, dev):
     pp_entry = entry('phase_pair', PP_SOURCE, PP_REPLACES, launches, max_err,
                      kt['bench_tables'])
     pp_entry['flux_launches'] = report['flux']['phase_pair_launches']
-    for name, rec in report['modes'].items():
+    for name, rec in {**report['modes'], **report['march']}.items():
         pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
@@ -1003,34 +1148,40 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     log('# heating rate: ' + json.dumps(report['heating_rate']))
 
 
-def path_run(name, fn):
+def path_run(name, fn, entry='run_transport_flight'):
     """Run ``fn(run)`` with every launch count set to 0 just before, where
-    ``run`` is solver.run_transport_flight with each flight pass timed
-    (solve's passes go through it too).  Checks that phase_pair, and no
-    other kernel, launched once per flight step; logs and returns (fn's
-    result, a record of the wall, steps, photons, photons/s, lane
-    iterations per photon, launch counts and passes)."""
+    ``run`` is the solver's ``entry`` (run_transport_flight, or the
+    marching engine's run_transport) with each pass timed (solve's passes
+    go through it too).  Checks that phase_pair, and no other kernel,
+    launched once per step, and that no marching pass ended at its step
+    cap; logs and returns (fn's result, a record of the wall, steps,
+    photons, photons/s, lane iterations per photon, launch counts and
+    passes, each marching pass with its cap)."""
     passes = []
-    flight = solver.run_transport_flight
+    engine = getattr(solver, entry)
+    marching = entry == 'run_transport'
 
     def timed(*a, **kw):
+        stats = kw.setdefault('stats', {})
         t0 = time.perf_counter()
-        tal = flight(*a, **kw)
+        tal = engine(*a, **kw)
         passes.append(dict(photons=int(tal.n_launched),
                            steps=int(tal.n_steps),
                            lane_iters=float(tal.lane_iters),
                            wall_s=time.perf_counter() - t0))
+        if marching:
+            passes[-1]['max_steps'] = stats['max_steps']
         return tal
     reset_counts()
     torch.cuda.synchronize()
-    solver.run_transport_flight = timed
+    setattr(solver, entry, timed)
     try:
         t0 = time.perf_counter()
         out = fn(timed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        solver.run_transport_flight = flight
+        setattr(solver, entry, engine)
     counts = launch_counts()
     steps = sum(p['steps'] for p in passes)
     photons = sum(p['photons'] for p in passes)
@@ -1039,6 +1190,9 @@ def path_run(name, fn):
           f'{steps} steps')
     check(all(n == 0 for k, n in counts.items() if k != 'phase_pair'),
           f'{name}: other kernels launched: {counts}')
+    check(all(p['steps'] < p.get('max_steps', p['steps'] + 1)
+              for p in passes),
+          f'{name}: a marching pass ended at its step cap: {passes}')
     rec = dict(wall_s=wall, steps=steps, photons=photons,
                photons_per_s=photons / wall,
                lane_iters_per_photon=sum(p['lane_iters'] for p in passes)
@@ -1187,6 +1341,172 @@ def modes_phase(args, dev, atm, ab, scene_kw, scene, st, report):
                                         if kk != 'passes'}
                                     for k, v in modes.items()}))
     return err
+
+
+def march_phase(args, dev, atm, ab, scene_kw, scene, st, report):
+    """Phase 8 (a)-(c): the event-marching engine on the bench scene (see
+    the module docstring).  Returns the largest phase_pair |kernel -
+    plain| on the marching-path inputs."""
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+    march = report['march'] = {}
+    base = dict(batch=BATCH, n_scat_max=600)
+    cfg = SolverConfig(target='flux', **base)
+    n_ph = MARCH_PHOTONS
+    t0 = time.perf_counter()
+    warm = mc.run_transport(scene, st, cfg, WARM_PHOTONS, args.seed + 20,
+                            dev)
+    check(int(warm.n_launched) == WARM_PHOTONS, 'marching warm-up launched')
+    log(f'# marching warm-up {WARM_PHOTONS:.0e} photons '
+        f'{time.perf_counter() - t0:.2f} s')
+
+    def timed_run(name, rec):
+        p = rec['passes'][0]
+        rec.update(max_steps=p['max_steps'],
+                   ms_per_step=1e3 * p['wall_s'] / p['steps'])
+        log(f'# phase 8 {name}: {p["steps"]} steps of the cap '
+            f'{p["max_steps"]}, {p["wall_s"]:.3f} s, '
+            f'{rec["ms_per_step"]:.3f} ms/step, '
+            f'{p["photons"] / p["wall_s"]:.4g} photons/s')
+
+    # (a) flux, domain-average tallies
+    tal, rec = path_run('phase 8 march_flux', lambda run: run(
+        scene, st, cfg, n_ph, args.seed + 21, dev), entry='run_transport')
+    timed_run('march_flux', rec)
+    tally = tal.flux.cpu().numpy()
+    n_l = int(tal.n_launched)
+    check(n_l == n_ph and tally.shape == (1, 1, st.nz + 1, 3, st.ng)
+          and np.isfinite(tally).all() and (tally >= 0).all(),
+          f'march_flux: {n_l} photons, tally {tally.shape} not finite >= 0')
+    red = reduce_flux(tally, n_l, ab, mu0)
+    toa = red['toa']
+    toa_err = float(np.max(np.abs(red['f_down_direct'][:, :, -1]
+                                  / (toa * mu0) - 1)))
+    check(toa_err <= 1e-5, f'march_flux: TOA down-direct off toa * mu0 by '
+                           f'{toa_err}')
+    ref_sfc, ref_toa = zip(*MARCH_FLUX_REF_RUNS)
+    rec.update(
+        toa_direct_max_rel_err=toa_err,
+        f_down_sfc=against_ref('marching domain-mean surface f_down',
+                               float(red['f_down'][:, :, 0].mean()), ref_sfc,
+                               MARCH_REF_PHOTONS, n_ph, 0.01),
+        f_up_toa=against_ref('marching domain-mean TOA f_up',
+                             float(red['f_up'][:, :, -1].mean()), ref_toa,
+                             MARCH_REF_PHOTONS, n_ph, 0.01))
+    march['march_flux'] = rec
+
+    # (b) nadir radiance, the phase-pair inputs of some steps captured
+    captured = []
+    plain_pair = mc.phase_pair
+
+    def capture(*a):
+        if len(captured) < 4 and phase_pair.launches % 25 == 0:
+            captured.append([t.clone() for t in a])
+        return plain_pair(*a)
+    mc.phase_pair = capture
+    try:
+        tal, rec = path_run('phase 8 march_rad', lambda run: run(
+            scene, st, SolverConfig(target='radiance', **base), n_ph,
+            args.seed + 22, dev), entry='run_transport')
+    finally:
+        mc.phase_pair = plain_pair
+    timed_run('march_rad', rec)
+    img = tal.rad.cpu().numpy()
+    n_l = int(tal.n_launched)
+    check(n_l == n_ph and img.shape == (st.nx, st.ny, st.ng)
+          and np.isfinite(img).all() and (img >= 0).all(),
+          f'march_rad: {n_l} photons, image {img.shape} not finite >= 0')
+    rec['domain_mean'] = against_ref(
+        'marching domain-mean radiance',
+        float(reduce_radiance(img, n_l, ab, mu0)['rad'].mean()),
+        MARCH_RAD_REF_RUNS, MARCH_REF_PHOTONS, n_ph, 0.01)
+    err = 0.0
+    n_pf = scene.pt_mu.shape[0]
+    tms_lanes = sum(int(torch.sum(a[1] >= n_pf)) for a in captured)
+    check(len(captured) >= 2 and tms_lanes > 0,
+          f'{len(captured)} marching steps captured, {tms_lanes} lanes on '
+          f'the TMS rows')
+    for i, a in enumerate(captured):
+        e, same = compare(phase_pair(*a), phase_pair_ref(*a))
+        err = max(err, e)
+        check(same, f'phase_pair kernel != plain on captured marching '
+                    f'inputs #{i}: max |diff| {e}')
+    rec.update(k1_bitwise_steps=len(captured), k1_tms_lanes=tms_lanes)
+    log(f'# phase_pair bitwise equal on {len(captured)} captured marching '
+        f'steps ({tms_lanes} lanes on the TMS rows)')
+    march['march_rad'] = rec
+
+    # (c) the heating rate of the marching engine (flux divergence)
+    res, rec = path_run('phase 8 march_hr', lambda run: solve(
+        atm=atm, abs_coef=ab, **scene_kw, target='heating_rate',
+        flux_engine='marching', photons=n_ph, n_run=2, batch=BATCH,
+        n_scat_max=600, seed=args.seed + 23, mode='all', device=dev),
+        entry='run_transport')
+    hr = np.asarray(res['hr'])
+    check(hr.shape[-1] == st.nz and np.isfinite(hr).all()
+          and 'hr_std' in res.std and len(res.runs) == 2
+          and all('hr' in r for r in res.runs),
+          f'march_hr: hr {hr.shape} not finite, or without hr_std or runs')
+    heat = atm.lay.pressure * 100.0 / (287.0 * atm.lay.temperature) \
+        * 1004.0 * atm.lay.thickness * 1000.0
+    rec.update(
+        hr=hr.reshape(-1).tolist(),
+        column_absorbed=against_ref(
+            'marching column-absorbed power',
+            float(np.sum(hr.reshape(-1) / 86400.0 * heat)),
+            MARCH_HR_REF_RUNS, MARCH_REF_PHOTONS, 2 * n_ph, 0.02))
+    march['march_hr'] = rec
+    log('# phase 8 marching: ' + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != 'passes'}
+         for k, v in march.items()}))
+    return err
+
+
+def quasi_summary(img, weight):
+    """(NaN count, mean over the finite pixels, the means of the 4 x 4
+    blocks) of the g-weighted (npix, npix) image of a (npix, npix, Ng)
+    quasi-radiance render."""
+    img = np.asarray(img, np.float64) @ weight
+    q = img.shape[0] // 4
+    blocks = img.reshape(4, q, 4, q).transpose(0, 2, 1, 3).reshape(16, -1)
+    return (int(np.isnan(img).sum()), float(np.nanmean(img)),
+            tuple(float(v) for v in np.nanmean(blocks, axis=1)))
+
+
+def quasi_phase(dev, ab, scene, st, report):
+    """Phase 8 (d): quasi-radiance of the bench scene for the two cameras,
+    against the JAX reference to QUASI_RTOL (deterministic: the bound only
+    absorbs f32 rounding between XLA on the CPU and CUDA)."""
+    quasi = report['quasi'] = {}
+    for name, cam in QUASI_CAMERAS.items():
+        cfg = SolverConfig(sensor_type='camera', cam_npix=QUASI_NPIX, **cam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = quasi_radiance(scene, st, cfg, n_steps=QUASI_STEPS, device=dev)
+        img = img.cpu().numpy()
+        wall = time.perf_counter() - t0
+        check(img.shape == (QUASI_NPIX, QUASI_NPIX, st.ng),
+              f'quasi {name}: image {img.shape}')
+        n_nan, mean, blocks = quasi_summary(img, ab.weight)
+        r_nan, r_mean, r_blocks = QUASI_REF[name]
+        rel = [mean / r_mean - 1] + [b / r - 1 for b, r in zip(blocks,
+                                                              r_blocks)]
+        worst = int(np.argmax(np.abs(rel)))
+        quasi[name] = dict(wall_s=wall, nan_count=n_nan, ref_nan_count=r_nan,
+                           mean_finite=mean, ref_mean_finite=r_mean,
+                           blocks=blocks, rel_diff_mean=rel[0],
+                           max_abs_rel_diff_block=float(np.max(np.abs(
+                               rel[1:]))),
+                           worst=('mean' if worst == 0
+                                  else f'block {worst - 1}'))
+        log(f'# quasi {name}: ' + json.dumps(quasi[name]))
+        check(n_nan == r_nan, f'quasi {name}: {n_nan} NaN pixels, the '
+                              f'reference {r_nan}')
+        check(np.isfinite(img[~np.isnan(img)]).all()
+              and (img[~np.isnan(img)] >= 0).all(),
+              f'quasi {name}: finite pixels not >= 0')
+        check(abs(rel[worst]) <= QUASI_RTOL,
+              f'quasi {name}: {quasi[name]["worst"]} off the JAX reference '
+              f'by {rel[worst]:.3g} (bound {QUASI_RTOL})')
 
 
 def profile_steps(scene, st, cfg, dev, rad_w=None, flux_w=None):

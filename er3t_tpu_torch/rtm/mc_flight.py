@@ -36,8 +36,9 @@ launch), pathlength tallies, 3D, IPA and partial-3D (``p3d_order``)
 transport, ``tile_size``, ``qmc_launch`` and ``launch_coherent``,
 ``rad_w``, collision forcing (``cf_dtau``), splitting (``split_wmax``),
 Russian roulette (``rr_wmin``, ``rr_value``), ``sort_every``, ``n_scat_max``,
-``max_events`` and ``drain_compact``.  The event-marching flux engine
-(``flux_engine='marching'``) raises ``NotImplementedError`` (ROADMAP A11).
+``max_events`` and ``drain_compact``.  ``cfg.flux_engine`` is ignored here,
+as in the reference's ``run_transport_flight``: the solver sends
+``flux_engine='marching'`` flux runs to :func:`~.mc.run_transport`.
 """
 
 from __future__ import annotations
@@ -49,18 +50,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .mc import SolverConfig, Tallies, _sensor_dir
+from .mc import (SolverConfig, Tallies, _sensor_dir, draw_deviates,
+                 resolve_device, rotate)
 from .phase_pair import phase_pair
 from .brdf import brdf_eval, brdf_sample_dir_weight
 from .scene import SceneArrays, SceneStatic, camera_rotation
 
-__all__ = ['FlightCarry', 'FlightKernel', 'check_supported',
-           'transport_flight', 'run_transport_flight', 'draw_deviates']
+__all__ = ['FlightCarry', 'FlightKernel', 'transport_flight',
+           'run_transport_flight', 'draw_deviates']
 
 _F = torch.float32
 _I = torch.int32
-_U_LO = np.float32(1e-7)                 # deviates lie in [1e-7, 1 - 1e-7]
-_U_HI = np.float32(1.0 - 1e-7)
 
 
 def _coprime_stride(n: int) -> int:
@@ -128,14 +128,6 @@ def _sort_lanes(c: FlightCarry, st: SceneStatic) -> FlightCarry:
     return _take_lanes(c, torch.argsort(key, stable=True))
 
 
-def check_supported(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for an option the port lacks."""
-    if cfg.target != 'radiance' and cfg.flux_engine != 'flight':
-        raise NotImplementedError(
-            f'er3t_tpu_torch flight kernel: flux_engine={cfg.flux_engine!r}: '
-            'the event-marching flux engine is ROADMAP A11')
-
-
 class FlightKernel:
     """Scene-derived tables and the step function of the flight loop
     (the reference's ``make_flight_kernel`` closure, :107-1304).
@@ -156,7 +148,6 @@ class FlightKernel:
 
     def __init__(self, scene: SceneArrays, st: SceneStatic,
                  cfg: SolverConfig, n_photon: int, rad_w=None, flux_w=None):
-        check_supported(cfg)
         self.scene, self.st, self.cfg = scene, st, cfg
         self.n_photon = int(n_photon)
         dev = self.device = scene.z_lev.device
@@ -347,22 +338,6 @@ class FlightKernel:
             yc = torch.remainder(y[:, None] + uy[:, None] * s, self.ly)
             col = self._local_ix(xc).long() * self.st.ny + self._local_iy(yc)
         return ((col * self.nlev + lev) * 3 + chi[:, None]).reshape(-1)
-
-    @staticmethod
-    def _rotate(ux, uy, uz, mu, psi):
-        """Turn (ux, uy, uz) by polar cosine ``mu`` and azimuth ``psi``."""
-        sin_t = torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))
-        cp, sp = torch.cos(psi), torch.sin(psi)
-        denom = torch.sqrt(torch.clamp(1.0 - uz * uz, min=1e-12))
-        straight = torch.abs(uz) > 0.99999
-        nx_ = sin_t * (ux * uz * cp - uy * sp) / denom + ux * mu
-        ny_ = sin_t * (uy * uz * cp + ux * sp) / denom + uy * mu
-        nz_ = -sin_t * cp * denom + uz * mu
-        ux_n = torch.where(straight, sin_t * cp, nx_)
-        uy_n = torch.where(straight, sin_t * sp, ny_)
-        uz_n = torch.where(straight, mu * torch.sign(uz), nz_)
-        norm = torch.rsqrt(ux_n ** 2 + uy_n ** 2 + uz_n ** 2)
-        return ux_n * norm, uy_n * norm, uz_n * norm
 
     def _split(self, c: FlightCarry, u_sp) -> FlightCarry:
         """Weight-window splitting (reference :383-421, MCARaTS
@@ -925,7 +900,7 @@ class FlightKernel:
 
         # ---------------- direction updates ----------------
         psi = u[6] * (2.0 * math.pi)
-        ux_s, uy_s, uz_s = self._rotate(ux, uy, uz, mu_new, psi)
+        ux_s, uy_s, uz_s = rotate(ux, uy, uz, mu_new, psi)
         bx, by, bz, bw = brdf_sample_dir_weight(
             jsfc_l, psfc_l, ux, uy, uz, u[5], u[6], u[9], u[10])
         ux = torch.where(accept, ux_s, torch.where(hit_sfc, bx, ux))
@@ -1014,16 +989,6 @@ class FlightKernel:
         py = torch.clamp(((0.5 + 0.5 * pr * torch.sin(phi_c)) * npix)
                          .to(_I), 0, npix - 1)
         return contrib, px.long() * npix + py
-
-
-def draw_deviates(gen: torch.Generator, batch: int, device,
-                  rows: int = 14) -> torch.Tensor:
-    """(rows, batch) uniforms mapped to [1e-7, 1-1e-7] as
-    ``jax.random.uniform`` maps them (``u * (hi - lo) + lo``, then
-    ``max(lo, .)``)."""
-    u = torch.rand((rows, batch), generator=gen, dtype=_F, device=device)
-    return u.mul_(float(_U_HI - _U_LO)).add_(float(_U_LO)) \
-        .clamp_(min=float(_U_LO))
 
 
 def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
@@ -1146,15 +1111,7 @@ def run_transport_flight(scene: SceneArrays, static: SceneStatic,
     (Ng,) spectral factors, the same for radiance image deposits
     (``Tallies.rad``; not with ``cfg.pathlength``).  ``stats``: see
     :func:`transport_flight`."""
-    device = torch.device(device)
-    if device.type == 'cuda' and device.index is None:
-        device = torch.device('cuda', torch.cuda.current_device())
-    for name, t in zip(SceneArrays._fields, scene):
-        if t.device != device:
-            raise ValueError(f'scene.{name} is on {t.device}, not {device}')
-    if device.type == 'cuda' and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError('torch.backends.cuda.matmul.allow_tf32 must be False: '
-                         'the absorption matmuls feed exp() in f32')
+    device = resolve_device(scene, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return transport_flight(scene, static, cfg, int(n_photon), gen,

@@ -7,13 +7,15 @@ radiance, fluxes or heating rates with the mean and std over runs (the
 reference's MC-noise protocol).  It runs radiance toward a satellite or a
 fisheye camera (with the mean pathlength ``plen`` if asked), flux and
 heating rate, with the 3D, partial-3D and IPA solvers of the flight engine
-and its variance knobs, with correlated g-points or the reference's
-independent per-g protocol (``spectral='independent'``: one pass per
-g-point, the budget split by :func:`distribute_photon`), and smooths the
-mean fields with ``diffusion``; :class:`Result` saves to and loads from
-the reference's HDF5 layout (``h5py``, imported only there).  The
-event-marching flux engine (ROADMAP A11) and multi-device runs (``mesh=``,
-ROADMAP A12) raise ``NotImplementedError``.
+and its variance knobs, flux and heating rate also with the event-marching
+engine (``flux_engine='marching'``, :func:`~.mc.run_transport`), with
+correlated g-points or the reference's independent per-g protocol
+(``spectral='independent'``: one pass per g-point, the budget split by
+:func:`distribute_photon`), and smooths the mean fields with
+``diffusion``; :class:`Result` saves to and loads from the reference's HDF5
+layout (``h5py``, imported only there).  Multi-device runs (``mesh=``,
+ROADMAP A12) raise ``NotImplementedError``.  The quasi-radiance target
+(MCARaTS ``Wld_mtarget=3``) is :func:`~.quasi.quasi_radiance`.
 
 Unlike the reference, a chunk that fails is not retried or skipped: the
 error propagates, so a fault on the card is never turned into a photon
@@ -23,13 +25,14 @@ deficit.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from . import out
-from .mc import SolverConfig
-from .mc_flight import check_supported, run_transport_flight
+from .mc import SolverConfig, run_transport
+from .mc_flight import run_transport_flight
 from .scene import build_scene
 
 __all__ = ['solve', 'Result', 'distribute_photon', 'g_slice']
@@ -127,17 +130,25 @@ def _write_fields(group, fields, compression):
 def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
                 flux_w=None, rad_w=None):
     """One independent pass, split into chunks of at most ``chunk`` photons
-    (chunks differ only by seed, ``seed + 7919 * i`` as in the reference).
-    Returns the summed image, flux, absorbed and pathlength-weighted image
-    tallies on the host and the launched count."""
+    (chunks differ only by seed, ``seed + 7919 * i`` as in the reference),
+    on the flight engine for radiance or ``flux_engine='flight'``, else on
+    the marching engine (reference :150-172).  Returns the summed image,
+    flux, absorbed and pathlength-weighted image tallies on the host and
+    the launched count."""
+    use_flight = cfg.target == 'radiance' or cfg.flux_engine == 'flight'
     sums = None
     n_total = 0
     remaining = int(n_photon)
     i = 0
     while remaining > 0:
         n_c = min(remaining, chunk)
-        tal = run_transport_flight(scene, static, cfg, n_c, seed + 7919 * i,
-                                   device, flux_w=flux_w, rad_w=rad_w)
+        if use_flight:
+            tal = run_transport_flight(scene, static, cfg, n_c,
+                                       seed + 7919 * i, device, flux_w=flux_w,
+                                       rad_w=rad_w)
+        else:
+            tal = run_transport(scene, static, cfg, n_c, seed + 7919 * i,
+                                device)
         parts = (tal.rad, tal.flux, tal.absorbed, tal.rad_plen)
         sums = parts if sums is None else [a + b for a, b in zip(sums, parts)]
         n_total += int(tal.n_launched)
@@ -237,7 +248,6 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         cam_qmax=float(cam['qmax']), cam_npix=int(cam['npix']),
         cam_apsize=float(cam['apsize']),
         qmc_launch=bool(qmc_launch))
-    check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError('er3t_tpu_torch solve: multi-device runs '
                                   '(mesh=) are ROADMAP A12')
@@ -254,16 +264,22 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
             cfg, flux_per_column=static.has_3d and target != 'heating_rate')
 
     mu0 = float(np.cos(np.deg2rad(solar_zenith_angle)))
-    # image deposits and clamped per-column crossings are contracted over g
-    # in the step (rad_w, flux_w), exactly equal to the contraction after;
-    # not the image of a pathlength run, whose ratio needs every g
+    # image deposits and the flight engine's clamped per-column crossings
+    # are contracted over g in the step (rad_w, flux_w), exactly equal to
+    # the contraction after; not the image of a pathlength run, whose ratio
+    # needs every g (reference :344-356)
     rad_w = flux_w = None
     if target == 'radiance':
         if not pathlength:
             rad_w = out.spectral_factors(abs_coef, date=date, nz_out=1)[0][0]
-    elif cfg.flux_per_column and cfg.flux_kcross > 0:
+    elif (cfg.flux_per_column and cfg.flux_kcross > 0
+          and flux_engine == 'flight'):
         flux_w = out.spectral_factors(abs_coef, date=date,
                                       nz_out=static.nz + 1)[0]
+    if qmc_launch and target != 'radiance' and flux_engine == 'marching':
+        warnings.warn('qmc_launch only affects the flight kernel; '
+                      "flux_engine='marching' launches uniformly",
+                      stacklevel=2)
     per_run = []
     n_eff = 0
     for r in range(n_run):
@@ -294,8 +310,9 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         per_run.append(red)
     if target == 'heating_rate':
         # net-flux differencing where there is no direct tally (per-column
-        # tallies, the independent protocol), per run, so that hr_std and
-        # the runs of mode='all' carry it (reference :408-414)
+        # tallies, the marching engine, the independent protocol), per run,
+        # so that hr_std and the runs of mode='all' carry it (reference
+        # :408-414)
         for p in per_run:
             if 'hr' not in p:
                 p['hr'] = out.heating_rate(p, atm)
@@ -344,7 +361,8 @@ def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
               if target == 'radiance' and not cfg.pathlength else None)
     flux_w1 = (np.ones((static.nz + 1, 1), np.float32)
                if target != 'radiance' and cfg.flux_per_column
-               and cfg.flux_kcross > 0 else None)
+               and cfg.flux_kcross > 0 and cfg.flux_engine == 'flight'
+               else None)
     acc_rad = acc_flux = acc_pl = None
     n_total = 0
     for g in range(ng):

@@ -5,7 +5,8 @@ wrapper is wrapped so that its plain-version call counts as a launch (on
 the CPU a wrapper runs its plain version and counts nothing).  What is
 checked is the script's control flow and its output: the contract's last
 two lines, every kernel's keys (floor, bound, library time), and the
-launch counts of the main path and of the probe path.
+launch counts of the main path and of the probe path.  Phase 8's quasi
+renders are held against the JAX package's on the same small scene.
 """
 
 import json
@@ -20,7 +21,7 @@ from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.probes import gather, gather_probe
-from er3t_tpu_torch.rtm import mc_flight
+from er3t_tpu_torch.rtm import mc, mc_flight
 from er3t_tpu_torch.rtm import phase_pair as pp
 from er3t_tpu_torch.rtm.scene import build_scene
 
@@ -32,6 +33,7 @@ KEYS = {'name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
 LIBRARY = {'take_reps', 'gather_row_sum', 'take2d', 'smem_stage'}
 PHASE7 = ('ipa', 'p3d', 'ipa_flux', 'camera', 'camera_air', 'cf_dtau',
           'split_wmax', 'rr_value', 'sort_coherent', 'production')
+PHASE8 = ('march_flux', 'march_rad', 'march_hr')
 
 
 def _small_scene(device):
@@ -45,6 +47,21 @@ def _small_scene(device):
               solar_azimuth_angle=45.0, forward_trunc_deg=25.0)
     scene, st = build_scene(atm, ab, **kw, device=device)
     return atm, ab, kw, scene, st
+
+
+def _quasi_ref(npix, n_steps):
+    """chip_smoke.QUASI_REF of the small scene, from the JAX package's
+    quasi_radiance on the same scene."""
+    import jax.numpy as jnp
+    from er3t_tpu.rtm.mc import SolverConfig as JConfig
+    from er3t_tpu.rtm.quasi import quasi_radiance
+    from er3t_tpu.rtm.scene import SceneArrays
+    _, ab, _, scene, st = _small_scene('cpu')
+    jscene = SceneArrays(**{f: jnp.asarray(getattr(scene, f).numpy())
+                            for f in SceneArrays._fields})
+    return {name: chip_smoke.quasi_summary(quasi_radiance(
+        jscene, st, JConfig(sensor_type='camera', cam_npix=npix, **cam),
+        n_steps), ab.weight) for name, cam in chip_smoke.QUASI_CAMERAS.items()}
 
 
 def _counting(fn, attr='launches'):
@@ -83,6 +100,11 @@ def rehearsal(monkeypatch, tmp_path):
                         ('FLUX_PHOTONS', 20_000),
                         ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', wide),
                         ('MODES_PHOTONS', 6_000), ('IPA_FLUX_REF_RUNS', wide),
+                        ('MARCH_PHOTONS', 6_000),
+                        ('MARCH_FLUX_REF_RUNS', wide),
+                        ('MARCH_RAD_REF_RUNS', tuple(r[0] for r in wide)),
+                        ('MARCH_HR_REF_RUNS', tuple(r[0] for r in wide)),
+                        ('QUASI_NPIX', 16), ('QUASI_STEPS', 48),
                         ('MODES_REF_RUNS', dict.fromkeys(
                             chip_smoke.MODES_REF_RUNS, wide_plen)),
                         ('REF_RUN_MEANS', tuple(r[0] for r in wide)),
@@ -90,6 +112,8 @@ def rehearsal(monkeypatch, tmp_path):
                         ('OUT_JSON', str(tmp_path / 'chip_smoke.json')),
                         ('build_bench_scene', _small_scene)):
         monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, 'QUASI_REF', _quasi_ref(
+        chip_smoke.QUASI_NPIX, chip_smoke.QUASI_STEPS))
     monkeypatch.setattr(gather_probe, 'B', 1024)
     monkeypatch.setattr(gather_probe, 'K', 2)
 
@@ -108,7 +132,7 @@ def rehearsal(monkeypatch, tmp_path):
         if tab.numel() * 4 > LIMIT:
             raise _build.CudaError('smem_stage', 1)
         return shims['smem_stage'](tab)
-    for mod in (mc_flight, gather_probe, gather):
+    for mod in (mc, mc_flight, gather_probe, gather):
         for name, shim in shims.items():
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, shim)
@@ -173,7 +197,32 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert modes['camera_air']['mean_plen']['value'] > 1e4
     assert modes['camera_air']['k1_bitwise_steps'] >= 2
     assert any(line.startswith('# phase 7 sort_coherent: ') for line in lines)
-    k1_keys = {'flux_launches'} | {f'{m}_launches' for m in PHASE7}
+    march = report['march']
+    assert set(march) == set(PHASE8)
+    for name, rec in march.items():
+        assert rec['phase_pair_launches'] == rec['steps'] > 0, name
+        assert all(p['steps'] < p['max_steps'] for p in rec['passes']), name
+        assert rec['photons'] == (12_000 if name == 'march_hr' else 6_000)
+        assert kernels[0][f'{name}_launches'] == rec['steps'], name
+        assert all(n == 0 for k, n in rec['launches'].items()
+                   if k != 'phase_pair'), name
+    assert march['march_flux']['toa_direct_max_rel_err'] <= 1e-5
+    assert march['march_flux']['f_down_sfc']['value'] > 0
+    assert march['march_rad']['domain_mean']['value'] > 0
+    assert march['march_rad']['k1_bitwise_steps'] >= 2
+    assert march['march_rad']['k1_tms_lanes'] > 0
+    assert len(march['march_hr']['passes']) == 2
+    assert march['march_hr']['column_absorbed']['value'] > 0
+    assert any(line.startswith('# phase 8 march_flux: ') for line in lines)
+    quasi = report['quasi']
+    assert set(quasi) == set(chip_smoke.QUASI_CAMERAS)
+    for name, rec in quasi.items():
+        assert rec['nan_count'] == rec['ref_nan_count'] > 0, name
+        assert abs(rec['rel_diff_mean']) <= chip_smoke.QUASI_RTOL, name
+        assert rec['max_abs_rel_diff_block'] <= chip_smoke.QUASI_RTOL, name
+        assert rec['wall_s'] > 0 and len(rec['blocks']) == 16, name
+    k1_keys = {'flux_launches'} | {f'{m}_launches'
+                                   for m in PHASE7 + PHASE8}
     for k in kernels:
         assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
                                  else set()), k['name']

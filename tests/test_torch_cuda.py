@@ -20,10 +20,11 @@ from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.probes import gather
 from er3t_tpu_torch.probes.gather_probe import device_ms
-from er3t_tpu_torch.rtm import mc_flight
+from er3t_tpu_torch.rtm import mc, mc_flight
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import spectral_factors
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
+from er3t_tpu_torch.rtm.quasi import quasi_radiance
 from er3t_tpu_torch.rtm.scene import build_scene
 
 torch.set_num_threads(2)
@@ -155,6 +156,64 @@ def test_flux_step_on_card_matches_cpu(cuda, per_col):
                 float(getattr(ref, f).double().sum()), rel=1e-4), (k, f)
         c = ref
     assert float(c.flux.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kw', [dict(target='radiance'),
+                                dict(target='radiance', sensor_zenith=30.0),
+                                dict(target='flux', flux_per_column=True)],
+                         ids=['radiance', 'radiance_slant', 'flux_column'])
+def test_march_step_on_card_matches_cpu(cuda, kw):
+    """The marching engine: six steps of one carry and deviates on the card
+    and on the CPU; lane state as in the flight tests, tallies to 1e-4 of
+    their totals, and one phase pair launch per step."""
+    atm, ab, scene_kw = _broken_inputs()
+    cfg = SolverConfig(batch=4096, n_scat_max=300, **kw)
+    kerns = {d: mc.MarchingKernel(*build_scene(atm, ab, **scene_kw, device=d),
+                                  cfg, 60000) for d in ('cpu', cuda)}
+    rng = np.random.default_rng(3)
+    c = kerns['cpu'].carry0(4096)
+    for k in range(6):
+        u = torch.from_numpy(rng.uniform(1e-7, 1 - 1e-7, (9, 4096))
+                             .astype(np.float32))
+        on = mc.MarchingCarry(*[
+            v.to(cuda) if isinstance(v, torch.Tensor) else v for v in c])
+        before = phase_pair.launches
+        got = kerns[cuda].step(on, u.to(cuda))
+        assert phase_pair.launches == before + 1
+        ref = kerns['cpu'].step(c, u)           # tallies grow in place
+        for f in ('z', 'ux', 'uy', 'uz', 'wsc', 'tau', 'S'):
+            np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                       getattr(ref, f).numpy(),
+                                       rtol=1e-4, atol=1e-5)
+        for f in ('alive', 'nscat', 'direct', 'l'):
+            same = (getattr(got, f).cpu() == getattr(ref, f)).float().mean()
+            assert float(same) >= 0.999, (k, f)
+        for f in ('rad', 'flux'):
+            assert float(getattr(got, f).double().sum()) == pytest.approx(
+                float(getattr(ref, f).double().sum()), rel=1e-4), (k, f)
+        c = ref
+    tally = c.rad if kw['target'] == 'radiance' else c.flux
+    assert float(tally.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cam', [dict(cam_zloc=0.0, cam_qmax=80.0),
+                                 dict(cam_zloc=8000.0, cam_the=180.0,
+                                      cam_qmax=60.0)],
+                         ids=['ground', 'airborne'])
+def test_quasi_on_card_matches_cpu(cuda, cam):
+    """The quasi-radiance image on the card and on the CPU: the same NaN
+    mask, and every finite pixel within 1e-4 relative."""
+    atm, ab, scene_kw = _broken_inputs()
+    cfg = SolverConfig(sensor_type='camera', cam_npix=32, **cam)
+    img = {d: quasi_radiance(*build_scene(atm, ab, **scene_kw, device=d), cfg,
+                             n_steps=128, device=d).cpu().numpy()
+           for d in ('cpu', cuda)}
+    np.testing.assert_array_equal(np.isnan(img[cuda]), np.isnan(img['cpu']))
+    fin = np.isfinite(img['cpu'])
+    assert fin.sum() > 400
+    np.testing.assert_allclose(img[cuda][fin], img['cpu'][fin], rtol=1e-4)
 
 
 CARD_MODES = {

@@ -218,14 +218,11 @@ def small_case():
     dict(target='flux', solver='p3d')],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_flux_refuses_unported_options(small_case, bad):
-    """The marching engine raises naming ROADMAP A11; forcing, IPA and
-    partial 3D, once refused, run: a short solve of each
-    matches the reference's (test_torch_solver.same_result)."""
+    """The marching engine, forcing, IPA and partial 3D, once refused, run:
+    a short solve of each matches the reference's
+    (test_torch_solver.same_result); nothing here is refused."""
     kw = dict(photons=2000, n_run=1, batch=1 << 10, seed=5, **bad)
-    if unported(bad):
-        with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-            tsolver.solve(**small_case, device='cpu', **kw)
-        return
+    assert unported(bad) is None
     same_result(tsolver.solve(**small_case, device='cpu', **kw),
                 jsolver.solve(**small_case, **kw))
 

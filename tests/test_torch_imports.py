@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from er3t_tpu_torch.rtm import mc_flight, scene, solver
+from er3t_tpu_torch.rtm import mc, mc_flight, quasi, scene, solver
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
@@ -27,6 +27,7 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.rtm.scene', 'er3t_tpu_torch.rtm.brdf',
                 'er3t_tpu_torch.rtm.phase_pair', 'er3t_tpu_torch.rtm.mc_flight',
                 'er3t_tpu_torch.rtm.out', 'er3t_tpu_torch.rtm.solver',
+                'er3t_tpu_torch.rtm.quasi', 'er3t_tpu_torch.rtm.oned',
                 'er3t_tpu_torch.probes', 'er3t_tpu_torch.probes.gather',
                 'er3t_tpu_torch.probes.gather_probe', 'chip_smoke')
 
@@ -53,8 +54,12 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 @pytest.mark.parametrize('fn', [scene.build_scene, solver.solve,
-                                mc_flight.run_transport_flight],
-                         ids=['build_scene', 'solve', 'run_transport_flight'])
+                                mc_flight.run_transport_flight,
+                                mc.run_transport, mc.transport,
+                                quasi.quasi_radiance],
+                         ids=['build_scene', 'solve', 'run_transport_flight',
+                              'run_transport', 'transport',
+                              'quasi_radiance'])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters['device'].default == 'cuda'
 

@@ -4,6 +4,7 @@ options it once refused, each a short run beside er3t_tpu's."""
 
 import dataclasses
 import datetime
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -75,7 +76,7 @@ def test_spectral_reduction_equals_reference(case, date):
 
 
 # what the port still refuses, each naming its ROADMAP item
-UNPORTED = {'flux_engine': 'A11', 'mesh': 'A12'}
+UNPORTED = {'mesh': 'A12'}
 
 
 def unported(bad):
@@ -108,10 +109,10 @@ def same_result(got, ref):
     dict(pathlength=True), dict(split_wmax=2.0), dict(mesh='x-slab mesh')],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_solve_refuses_unported_options(case, bad):
-    """The marching flux engine and mesh= raise NotImplementedError naming
-    ROADMAP A11 and A12.  The other cases, refused until IPA, partial 3D,
-    the camera, pathlength, forcing and splitting were ported, now run:
-    a short solve of each matches the reference's (same_result)."""
+    """mesh= raises NotImplementedError naming ROADMAP A12.  The other
+    cases, refused until the marching flux engine, IPA, partial 3D, the
+    camera, pathlength, forcing and splitting were ported, now run: a short
+    solve of each matches the reference's (same_result)."""
     kw = dict(photons=2000, n_run=1, batch=1 << 10, seed=5, **bad)
     item = unported(bad)
     if item:
@@ -130,21 +131,16 @@ def test_solve_refuses_unported_options(case, bad):
     dict(cam_importance_sigma=1.0), dict(pathlength=True), dict(ipa=True)],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_flight_refuses_unported_options(case, bad):
-    """The flight entry refuses the marching flux engine (ROADMAP A11).
-    Every other option, once refused, runs: 2000 photons
-    through both packages' run_transport_flight on one scene launch
-    exactly as many photons, and give tallies of the same shapes, finite
-    and >= 0."""
+    """Every option, once refused, runs: 2000 photons through both
+    packages' run_transport_flight on one scene launch exactly as many
+    photons, and give tallies of the same shapes, finite and >= 0, the
+    target's tally not all zero.  The flight entry ignores flux_engine, as
+    the reference's does."""
     bad = dict(bad)
     ipa = bad.pop('ipa', False)
     kw = {k: v for k, v in case.items() if k not in ('atm', 'abs_coef')}
     scn, st = jbuild_scene(case['atm'], case['abs_coef'], **kw)
     st = dataclasses.replace(st, ipa=ipa)
-    if unported(bad):
-        with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-            run_transport_flight(*scene_from_numpy(scn, st, 'cpu'),
-                                 SolverConfig(batch=256, **bad), 100, 0, 'cpu')
-        return
     if 'cam_importance_sigma' in bad:
         bad['sensor_type'] = 'camera'
     ref = jmf.run_transport_flight(scn, st, JConfig(batch=256, **bad), 2000,
@@ -158,4 +154,35 @@ def test_flight_refuses_unported_options(case, bad):
             b = b.reshape(a.shape)     # radiance: zeros of the same size
         assert a.shape == b.shape, f
         assert np.isfinite(a).all() and (a >= 0).all(), f
-    assert float(got.rad.sum()) > 0
+    tally = got.flux if bad.get('target') == 'flux' else got.rad
+    assert float(tally.sum()) > 0
+    if bad.get('target') == 'flux':
+        np.testing.assert_allclose(got.flux[..., -1, 0, :].numpy(),
+                                   np.asarray(ref.flux)[..., -1, 0, :],
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize('engine', ['flight', 'marching'])
+@pytest.mark.parametrize('target', ['flux', 'heating_rate'])
+def test_flux_contraction_only_for_the_flight_engine(case, engine, target):
+    """Per-column crossings are contracted over g in the step (flux_w) by
+    the flight engine only: a marching run gets no contraction, in the
+    port as in the reference (er3t_tpu/rtm/solver.py:344-347)."""
+    seen = {}
+
+    def spy(pkg, fn):
+        def run(*a, **kw):
+            seen.setdefault(pkg, []).append(kw.get('flux_w'))
+            return fn(*a, **kw)
+        return run
+    kw = dict(target=target, flux_engine=engine, flux_per_column=True,
+              photons=1000, n_run=1, batch=1 << 10, seed=2)
+    with mock.patch.object(tsolver, '_single_run',
+                           spy('port', tsolver._single_run)), \
+            mock.patch.object(jsolver, '_single_run',
+                              spy('ref', jsolver._single_run)):
+        got = tsolver.solve(**case, device='cpu', **kw)
+        ref = jsolver.solve(**case, **kw)
+    built = {p: [w is not None for w in ws] for p, ws in seen.items()}
+    assert built['port'] == built['ref'] == [engine == 'flight']
+    same_result(got, ref)
