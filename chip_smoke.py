@@ -81,6 +81,27 @@ Phases (any failure raises and the exit code is non-zero):
    x 128 pixels, 512 steps: the NaN count, the g-weighted mean over the
    finite pixels and the 16 block means within 1e-4 of QUASI_REF, the
    worst of them named when it fails; its wall printed;
+9. multi-device transport (er3t_tpu_torch.dist) on the same scene and
+   production config, four ranks on this one card, each path with every
+   launch count set to 0 just before it, phase_pair launched once per
+   flight step of every rank, its wall, steps per rank, rounds and
+   photons/s printed: (a) transport_photon_parallel on make_mesh(4,
+   decomp=1), 2e6 photons: the budget exactly, the domain mean against the
+   radiance reference; (b) transport_decomp on make_mesh(4, decomp=4), 120
+   columns a slab, 2e6 photons: the budget exactly, rounds below the cap,
+   the domain mean against the radiance reference, the lanes shipped per
+   superstep, those held back by the window or the receiver, and the wall
+   in migration (pack, exchange, unpack) against the wall in flight steps;
+   phase_pair bitwise against its plain version on inputs captured from
+   its slab steps; (c) decomposed per-column flux (flux_kcross=4,
+   flux_w), 1e6 photons: TOA down-direct = toa * mu0 in every column of
+   every slab, surface f_down and TOA f_up against the flux reference;
+   (d) solve(target='radiance', mesh=make_mesh(4, decomp=4), photons=1e6,
+   n_run=1) against the radiance reference; (e) a process group of one
+   (init_distributed with NCCL on a free localhost port) and a
+   photon-parallel run of 1e6 photons through its all_reduce: the budget
+   exactly, the mean against the radiance reference; the group destroyed
+   after;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -106,7 +127,8 @@ over 3.35 TB/s and its float operations over 67 TFLOP/s.
 
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
-build/chip_smoke.json (phase 8 under "march" and "quasi").  With
+build/chip_smoke.json (phase 8 under "march" and "quasi", phase 9 under
+"dist").  With
 --profile, 20 radiance steps and 20 flux steps are profiled (keys
 "profile" and "profile_flux").
 """
@@ -116,14 +138,17 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from er3t_tpu_torch import _build
+from er3t_tpu_torch.dist.mesh import init_distributed, make_mesh
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
@@ -470,6 +495,10 @@ FLUX_PHOTONS = 4_000_000         # photons of the timed flux-path run
 HR_PHOTONS = 1_000_000           # photons per run of the heating-rate solve
 MODES_PHOTONS = 2_000_000        # photons per run of each phase-7 path
 MARCH_PHOTONS = 1_000_000        # photons per run of each phase-8 path
+DIST_RANKS = 4                   # phase 9: ranks, all on this card
+DIST_PHOTONS = 2_000_000         # photons of phase 9 (a) and (b)
+DIST_FLUX_PHOTONS = 1_000_000    # photons of phase 9 (c)
+DIST_SOLVE_PHOTONS = 1_000_000   # photons of phase 9 (d) and (e)
 AIR_CAMERA = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
 # phase 7 (c): split_wmax 0.5 (the reference's tests' value): the
 # production config's weights stay at or below 1, so a window of 2 would
@@ -941,6 +970,10 @@ def run(args, dev):
                                        st, report))
     quasi_phase(dev, ab, scene, st, report)
 
+    # ---- 9. multi-device transport ----
+    max_err = max(max_err, dist_phase(args, dev, atm, ab, scene_kw, scene,
+                                      st, report))
+
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -992,6 +1025,8 @@ def run(args, dev):
     pp_entry['flux_launches'] = report['flux']['phase_pair_launches']
     for name, rec in {**report['modes'], **report['march']}.items():
         pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
+    for name, rec in report['dist'].items():
+        pp_entry[f'dist_{name}_launches'] = rec['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name])
@@ -1458,6 +1493,206 @@ def march_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     log('# phase 8 marching: ' + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != 'passes'}
          for k, v in march.items()}))
+    return err
+
+
+def dist_path(name, fn):
+    """Run ``fn(run)`` with every launch count set to 0 just before, where
+    ``run`` maps 'transport_decomp' and 'transport_photon_parallel' to the
+    solver's dist entries, each call timed and its stats kept (solve's
+    passes go through them too).  Checks that phase_pair, and no other
+    kernel, launched once per flight step of every rank; logs and returns
+    (fn's result, a record of the wall, steps per rank, rounds against the
+    cap and lanes left in flight, photons, photons/s, migration counts and
+    walls, and launch counts)."""
+    passes = []
+    engines = {k: getattr(solver, k) for k in ('transport_decomp',
+                                               'transport_photon_parallel')}
+
+    def timed(engine):
+        def run(*a, **kw):
+            stats = kw.setdefault('stats', {})
+            t0 = time.perf_counter()
+            tal = engine(*a, **kw)
+            n = int(tal.n_launched)
+            passes.append(dict(photons=n, wall_s=time.perf_counter() - t0,
+                               **stats))
+            return tal
+        return run
+    runs = {k: timed(e) for k, e in engines.items()}
+    reset_counts()
+    torch.cuda.synchronize()
+    for k, r in runs.items():
+        setattr(solver, k, r)
+    try:
+        t0 = time.perf_counter()
+        out = fn(runs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, e in engines.items():
+            setattr(solver, k, e)
+    counts = launch_counts()
+    rank_steps = [p['rank_steps'] for p in passes]
+    steps = sum(map(sum, rank_steps))
+    photons = sum(p['photons'] for p in passes)
+    check(steps > 0 and counts['phase_pair'] == steps,
+          f'{name}: phase_pair launched {counts["phase_pair"]} times in '
+          f'{steps} rank steps')
+    check(all(n == 0 for k, n in counts.items() if k != 'phase_pair'),
+          f'{name}: other kernels launched: {counts}')
+    rec = dict(wall_s=wall, steps=steps, rank_steps=rank_steps,
+               rounds=[p.get('rounds') for p in passes], photons=photons,
+               photons_per_s=photons / wall,
+               phase_pair_launches=counts['phase_pair'], launches=counts)
+    if 'shipped' in passes[0]:
+        rounds = sum(p['rounds'] for p in passes)
+        flight = sum(p['flight_s'] for p in passes)
+        mig = sum(p['migrate_s'] for p in passes)
+        rec.update(max_rounds=[p['max_rounds'] for p in passes],
+                   in_flight=sum(p['in_flight'] for p in passes),
+                   shipped=sum(p['shipped'] for p in passes),
+                   held=sum(p['held'] for p in passes),
+                   shipped_per_superstep=sum(p['shipped'] for p in passes)
+                   / rounds, flight_s=flight, migrate_s=mig,
+                   migrate_share=mig / (flight + mig))
+    log(f'# phase 9 {name}: ' + json.dumps(rec))
+    return out, rec
+
+
+def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
+    """Phase 9: photon-parallel, decomposed and process-group runs on the
+    bench scene, four ranks on this card (see the module docstring).
+    Returns the largest phase_pair |kernel - plain| on the captured slab
+    steps."""
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+    runs = report['dist'] = {}
+    cfg = SolverConfig(target='radiance', batch=BATCH, n_scat_max=600,
+                       tile_size=16, use_pallas=True, qmc_launch=True)
+    factors, toa = spectral_factors(ab, nz_out=1)
+    rad_w = factors[0]
+    devs = [dev] * DIST_RANKS
+
+    def radiance_mean(what, tal, n, rec):
+        img = tal.rad.cpu().numpy()
+        n_l = int(tal.n_launched)
+        check(n_l == n, f'{what}: launched {n_l} photons of {n}')
+        check(img.shape == (st.nx, st.ny, 1) and np.isfinite(img).all()
+              and (img >= 0).all(), f'{what}: image {img.shape} not finite '
+                                    f'>= 0')
+        rec['domain_mean'] = against_ref(
+            f'{what} domain-mean radiance',
+            float(reduce_radiance(img, n_l, ab, mu0,
+                                  precontracted=True)['rad'].mean()),
+            REF_RUN_MEANS, REF_PHOTONS, n, 0.01)
+
+    def below_cap(what, rec):
+        check(all(r < m for r, m in zip(rec['rounds'], rec['max_rounds']))
+              and rec['in_flight'] == 0,
+              f'{what}: rounds {rec["rounds"]} of the cap '
+              f'{rec["max_rounds"]}, {rec["in_flight"]} lanes in flight')
+
+    # (a) photon-parallel
+    n = DIST_PHOTONS
+    tal, rec = dist_path('photon', lambda run: run['transport_photon_parallel'](
+        scene, st, cfg, n, make_mesh(DIST_RANKS, decomp=1, device=devs),
+        seed=args.seed + 30, rad_w=rad_w))
+    radiance_mean('photon-parallel', tal, n, rec)
+    runs['photon'] = rec
+
+    # (b) decomposed radiance, phase-pair inputs of some slab steps captured
+    captured = []
+    plain_pair = mc_flight.phase_pair
+
+    def capture(*a):
+        if len(captured) < 4 and phase_pair.launches % 97 == 0:
+            captured.append([t.clone() for t in a])
+        return plain_pair(*a)
+    mesh4 = make_mesh(DIST_RANKS, decomp=DIST_RANKS, device=devs)
+    mc_flight.phase_pair = capture
+    try:
+        tal, rec = dist_path('decomp', lambda run: run['transport_decomp'](
+            scene, st, cfg, n, mesh4, seed=args.seed + 31, rad_w=rad_w))
+    finally:
+        mc_flight.phase_pair = plain_pair
+    below_cap('decomposed radiance', rec)
+    radiance_mean('decomposed', tal, n, rec)
+    err = 0.0
+    check(len(captured) >= 2, f'{len(captured)} slab steps captured')
+    for i, a in enumerate(captured):
+        e, same = compare(phase_pair(*a), phase_pair_ref(*a))
+        err = max(err, e)
+        check(same, f'phase_pair kernel != plain on captured slab-step '
+                    f'inputs #{i}: max |diff| {e}')
+    rec['k1_bitwise_steps'] = len(captured)
+    log(f'# phase_pair bitwise equal on {len(captured)} captured slab steps')
+    runs['decomp'] = rec
+
+    # (c) decomposed per-column flux
+    fcfg = dataclasses.replace(cfg, target='flux', flux_per_column=True,
+                               flux_kcross=4)
+    flux_w, ftoa = spectral_factors(ab, nz_out=st.nz + 1)
+    nf = DIST_FLUX_PHOTONS
+    tal, rec = dist_path('flux', lambda run: run['transport_decomp'](
+        scene, st, fcfg, nf, mesh4, seed=args.seed + 32, flux_w=flux_w))
+    tally = tal.flux.cpu().numpy()
+    n_l = int(tal.n_launched)
+    check(n_l == nf and tally.shape == (st.nx, st.ny, st.nz + 1, 3, 1)
+          and np.isfinite(tally).all() and (tally >= 0).all(),
+          f'decomposed flux: {n_l} photons, tally {tally.shape} not finite '
+          f'>= 0')
+    red = reduce_flux(tally, n_l, ab, mu0, precontracted=True)
+    toa_err = float(np.max(np.abs(red['f_down_direct'][:, :, -1]
+                                  / (ftoa * mu0) - 1)))
+    check(toa_err <= 1e-5, f'decomposed flux: TOA down-direct off toa * mu0 '
+                           f'by {toa_err}')
+    ref_sfc, ref_toa = zip(*FLUX_REF_RUNS)
+    rec.update(
+        toa_direct_max_rel_err=toa_err,
+        f_down_sfc=against_ref('decomposed domain-mean surface f_down',
+                               float(red['f_down'][:, :, 0].mean()), ref_sfc,
+                               FLUX_REF_PHOTONS, nf, 0.01),
+        f_up_toa=against_ref('decomposed domain-mean TOA f_up',
+                             float(red['f_up'][:, :, -1].mean()), ref_toa,
+                             FLUX_REF_PHOTONS, nf, 0.01))
+    runs['flux'] = rec
+
+    # (d) the front door on the decomposition
+    ns = DIST_SOLVE_PHOTONS
+    res, rec = dist_path('solve', lambda run: solve(
+        atm=atm, abs_coef=ab, **scene_kw, target='radiance', photons=ns,
+        n_run=1, batch=BATCH, tile_size=16, qmc_launch=True, n_scat_max=600,
+        seed=args.seed + 33, mesh=mesh4, device=dev))
+    below_cap('solve(mesh=)', rec)
+    rad = np.asarray(res['rad'])
+    check(rad.shape == (st.nx, st.ny) and np.isfinite(rad).all()
+          and res.n_photon_effective == ns and res.toa == toa,
+          f'solve(mesh=): rad {rad.shape}, {res.n_photon_effective} photons')
+    rec['domain_mean'] = against_ref('solve(mesh=) domain-mean radiance',
+                                     float(rad.mean()), REF_RUN_MEANS,
+                                     REF_PHOTONS, ns, 0.01)
+    runs['solve'] = rec
+
+    # (e) the process-group path: NCCL, a world of one
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    init_distributed(f'tcp://127.0.0.1:{port}', world_size=1, rank=0,
+                     device=dev, timeout_s=120)
+    try:
+        pg = make_mesh(device=dev)
+        check(pg.size == 1 and type(pg.comm).__name__ == 'ProcessComm',
+              f'process-group mesh {pg}')
+        backend = dist.get_backend()
+        tal, rec = dist_path('process_group', lambda run: run[
+            'transport_photon_parallel'](scene, st, cfg, ns, pg,
+                                         seed=args.seed + 34, rad_w=rad_w))
+    finally:
+        dist.destroy_process_group()
+    rec['backend'] = backend
+    radiance_mean(f'process group ({backend})', tal, ns, rec)
+    runs['process_group'] = rec
+    log('# phase 9: ' + json.dumps(runs))
     return err
 
 

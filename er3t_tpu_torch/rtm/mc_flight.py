@@ -27,6 +27,10 @@ differs is the execution shape:
 * flux tallies are unpacked rows, ``(Nxf*Nyf*(Nz+1)*3, Ng)`` or, with
   ``flux_w``, flat scalars; the reference's 8-fold row packing is a TPU
   layout device.
+* the x-slab branch of domain-decomposed runs (``slab=``, reference
+  :107-110) is the reference's, site for site; :func:`lane_matrix` packs
+  the lanes bit for bit into one int32 matrix for the migration exchange
+  of :mod:`er3t_tpu_torch.dist.decomp`, so no 2^24 guard is needed.
 
 Supported: ``target`` radiance or flux (per-column with ``flux_kcross``
 > 0 or = 0, with or without ``flux_w``; domain average with the direct
@@ -36,13 +40,15 @@ launch), pathlength tallies, 3D, IPA and partial-3D (``p3d_order``)
 transport, ``tile_size``, ``qmc_launch`` and ``launch_coherent``,
 ``rad_w``, collision forcing (``cf_dtau``), splitting (``split_wmax``),
 Russian roulette (``rr_wmin``, ``rr_value``), ``sort_every``, ``n_scat_max``,
-``max_events`` and ``drain_compact``.  ``cfg.flux_engine`` is ignored here,
+``max_events`` and ``drain_compact``, and the x-slab branch (``slab``,
+``x_off``, ``spawn_reserve``).  ``cfg.flux_engine`` is ignored here,
 as in the reference's ``run_transport_flight``: the solver sends
 ``flux_engine='marching'`` flux runs to :func:`~.mc.run_transport`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import NamedTuple
@@ -56,8 +62,9 @@ from .phase_pair import phase_pair
 from .brdf import brdf_eval, brdf_sample_dir_weight
 from .scene import SceneArrays, SceneStatic, camera_rotation
 
-__all__ = ['FlightCarry', 'FlightKernel', 'transport_flight',
-           'run_transport_flight', 'draw_deviates']
+__all__ = ['FlightCarry', 'FlightKernel', 'SlabSpec', 'transport_flight',
+           'run_transport_flight', 'draw_deviates', 'lane_matrix',
+           'lanes_from_matrix']
 
 _F = torch.float32
 _I = torch.int32
@@ -76,6 +83,13 @@ def _f32(v) -> float:
     """``v`` rounded to f32, as a Python float (the value a JAX f32 scalar
     holds)."""
     return float(np.float32(v))
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabSpec:
+    """An x-slab of a domain-decomposed run (reference :71-75)."""
+    nx_global: int          # columns across all slabs
+    nx_local: int           # columns of this slab (the shard's st.nx)
 
 
 class FlightCarry(NamedTuple):
@@ -128,6 +142,44 @@ def _sort_lanes(c: FlightCarry, st: SceneStatic) -> FlightCarry:
     return _take_lanes(c, torch.argsort(key, stable=True))
 
 
+def lane_matrix(c: FlightCarry):
+    """Every per-lane field as one (B, F) int32 matrix and its column spec
+    (the reference's ``lane_matrix``, :1316-1343), so that a migration
+    window is one buffer.  f32 fields are reinterpreted bit for bit
+    (``view``), int32 fields copied, bool fields stored as 0 / 1: the
+    round trip is exact for any value (the reference packs f32 values,
+    exact below 2^24)."""
+    cols, spec, off = [], {}, 0
+    for f in _LANE_FIELDS:
+        v = getattr(c, f)
+        blk = v.T if f == 'labs' else v[:, None]
+        if blk.dtype == torch.bool:
+            blk = blk.to(_I)
+        elif blk.dtype == _F:
+            blk = blk.view(_I)
+        elif blk.dtype != _I:
+            raise TypeError(f'FlightCarry.{f} is {blk.dtype}; lane_matrix '
+                            'packs float32, int32 and bool lanes')
+        spec[f] = (off, blk.shape[1], v.dtype)
+        cols.append(blk)
+        off += blk.shape[1]
+    return torch.cat(cols, dim=1), spec
+
+
+def lanes_from_matrix(m: torch.Tensor, c: FlightCarry, spec) -> FlightCarry:
+    """Inverse of :func:`lane_matrix`: the lanes of ``m`` in ``c``'s
+    layout (tallies and counters are ``c``'s)."""
+    upd = {}
+    for f, (off, k, dt) in spec.items():
+        blk = m[:, off:off + k]
+        if dt == torch.bool:
+            blk = blk != 0
+        elif dt == _F:
+            blk = blk.view(_F)
+        upd[f] = (blk.T if f == 'labs' else blk[:, 0]).contiguous()
+    return c._replace(**upd)
+
+
 class FlightKernel:
     """Scene-derived tables and the step function of the flight loop
     (the reference's ``make_flight_kernel`` closure, :107-1304).
@@ -144,19 +196,42 @@ class FlightKernel:
     absorbed-energy tally.  ``flux_w`` and ``rad_w`` are ignored where
     the reference ignores them; ``rad_w`` with ``cfg.pathlength`` raises
     ``ValueError`` (the pathlength ratio needs the per-g image).
+
+    With ``slab`` (reference :113-116) ``scene`` and ``st`` are this slab's
+    x-shard (:func:`er3t_tpu_torch.dist.decomp.shard_scene`) and ``x_off``
+    its global x-origin [m]: photons spawn in the slab, coordinates stay
+    global, a lane out of its slab freezes (above the deck top it roams,
+    except under per-column flux), and flights clamp at the slab faces.
+    Radiance images are global.  ``spawn_reserve`` withholds that many
+    dead lanes from respawn each step, so migration always finds landing
+    room.
     """
 
     def __init__(self, scene: SceneArrays, st: SceneStatic,
-                 cfg: SolverConfig, n_photon: int, rad_w=None, flux_w=None):
+                 cfg: SolverConfig, n_photon: int, rad_w=None, flux_w=None,
+                 slab: SlabSpec | None = None, x_off=0.0,
+                 spawn_reserve: int = 0):
         self.scene, self.st, self.cfg = scene, st, cfg
         self.n_photon = int(n_photon)
         dev = self.device = scene.z_lev.device
         nz, ng = st.nz, st.ng
-        self.lx = st.nx * st.dx
+        # under a slab st.nx is the slab's width; coordinates wrap on the
+        # global domain (reference :170-177)
+        self.slab = slab
+        self.nx_glob = st.nx if slab is None else slab.nx_global
+        self.x_off = _f32(x_off)
+        self.spawn_reserve = int(spawn_reserve)
+        self.lx_loc = st.nx * st.dx
+        self.lx = self.nx_glob * st.dx
         self.ly = st.ny * st.dy
+        # the slab's upper face, f32(x_off + lx_loc) as the reference sums it
+        self.x_hi = float(np.float32(self.x_off) + np.float32(self.lx_loc))
         self.radiance = cfg.target == 'radiance'
         self.camera = cfg.sensor_type == 'camera'
+        # a decomposed radiance run deposits into the GLOBAL image (slant
+        # sensors and IPA project deposits across slab faces)
         self.nxr, self.nyr = ((cfg.cam_npix, cfg.cam_npix) if self.camera
+                              else (self.nx_glob, st.ny) if self.radiance
                               else (st.nx, st.ny))
         self.scalar_rad = self.radiance and rad_w is not None
         if self.scalar_rad and cfg.pathlength:
@@ -177,6 +252,14 @@ class FlightKernel:
         # to its last low-order scatter's column from order p3d on
         self.p3d = int(cfg.p3d_order)
         self.pinned = st.ipa or self.p3d > 0
+        # decomposed runs (reference :181-186): only the deck z-range is
+        # sharded; above its top the replicated 1D medium lets lanes roam
+        # across slabs, except under per-column flux, whose crossings are
+        # tallied in the local columns
+        self.roam = slab is not None and not per_col
+        # IPA deposits go to the birth column's global pixel (:1184-1188)
+        self.ix_shift = int(np.round(np.float32(self.x_off)
+                                     / np.float32(st.dx)))
 
         z_lev = scene.z_lev
         self.dz_lay = z_lev[1:] - z_lev[:-1]
@@ -246,9 +329,19 @@ class FlightKernel:
         # solar launch direction, computed on the device in f32 as the
         # reference does, then held as exact Python floats
         sin0 = torch.sqrt(torch.clamp(1.0 - scene.mu0 ** 2, min=0.0))
-        self.u0x = float(sin0 * torch.cos(scene.phi0))
+        u0x = sin0 * torch.cos(scene.phi0)
+        self.u0x = float(u0x)
         self.u0y = float(sin0 * torch.sin(scene.phi0))
         self.u0z = float(-scene.mu0)
+        # decomposed launch precompensation (reference :267-280): the solar
+        # descent from TOA to the deck top drifts (z_top - zd_top) tan(sza)
+        # across several slabs, so each slab's launch window is shifted
+        # upwind by it and first deck entries stay local; the shifted
+        # windows still tile the domain, so launches stay uniform
+        self.x_drift0 = 0.0
+        if self.roam and not st.ipa:
+            self.x_drift0 = float(u0x * (z_lev[-1] - z_lev[st.iz3l + st.nz3])
+                                  / torch.clamp(scene.mu0, min=1e-6))
 
         if self.camera:
             # fisheye camera (reference :282-287, 1029-1047, 1093-1145):
@@ -264,7 +357,7 @@ class FlightKernel:
             self.cam_qmax = float(np.float32(cfg.cam_qmax)
                                   * np.float32(np.pi / 180))
         self.cam_importance = (self.camera and cfg.cam_importance_sigma > 0
-                               and self.radiance)
+                               and self.radiance and slab is None)
 
         self.uniform_sfc = st.nxs == 1 and st.nys == 1
         # packed surface table: [jsfc, p0..p4] (reference :289-293)
@@ -308,8 +401,36 @@ class FlightKernel:
             rad=rad, rad_pl=rad_pl, flux=flux, absorbed=absorbed)
 
     def _local_ix(self, x):
+        if self.slab is not None:
+            x = x - self.x_off
         return torch.clamp(torch.floor(x / self.st.dx).to(_I),
                            0, self.st.nx - 1)
+
+    def _in_slab(self, x):
+        return (x >= self.x_off) & (x < self.x_hi)
+
+    def _slab_clamp(self, x, z, ux, uz, inv_uz):
+        """Distance to a slab's clamp point (reference :590-622): its
+        first face crossing; for a roaming flight that starts above the
+        deck top, the deck entry when that lies in another slab, else the
+        first face crossing after it (ascending roamers never clamp).
+        Returns (clamp distance, starts above the deck top)."""
+        def s_face(xq):
+            # the first face crossing from a point in the slab
+            return torch.where(ux > 1e-7, (self.x_hi - xq) / ux,
+                               torch.where(ux < -1e-7, (self.x_off - xq) / ux,
+                                           3e37))
+        clamp_s = torch.clamp(s_face(x), min=0.0)
+        if not self.roam:
+            return clamp_s, None
+        starts_above = z > self.zd_hi
+        s_t = torch.clamp(torch.where(uz < 0, (self.zd_hi - z) * inv_uz, 3e37),
+                          min=0.0)
+        x_t = torch.remainder(x + ux * s_t, self.lx)
+        entry = torch.where(self._in_slab(x_t),
+                            s_t + torch.clamp(s_face(x_t), min=0.0), s_t)
+        return torch.where(starts_above, torch.where(uz < 0, entry, 3e37),
+                           clamp_s), starts_above
 
     def _local_iy(self, y):
         return torch.remainder(torch.floor(y / self.st.dy).to(_I), self.st.ny)
@@ -422,19 +543,28 @@ class FlightKernel:
         # ---------------- respawn ----------------
         dead = ~c.alive
         order = torch.cumsum(dead, dim=0)                      # int64
-        spawn = dead & (order <= self.n_photon - c.launched)
+        quota = self.n_photon - c.launched
+        sr = self.spawn_reserve
+        if sr:
+            # the first sr dead lanes stay dead: landing room for migration
+            spawn = dead & (order > sr) & (order - sr <= quota)
+        else:
+            spawn = dead & (order <= quota)
         launched = c.launched + torch.sum(spawn)
         if self.strat:
             # rank among spawning lanes -> shuffled cell + in-cell jitter;
             # int64 holds the reference's uint32 values (stride*n < 2^32)
-            idx = c.launched + order - 1
+            idx = c.launched + order - (sr + 1)
             cell = torch.remainder(idx + q_off, self.n_cell) \
                 * self.q_stride % self.n_cell
             x_sp = ((cell // st.ny).to(_F) + u[0]) * dx
             y_sp = ((cell % st.ny).to(_F) + u[1]) * dy
         else:
-            x_sp = u[0] * lx
+            x_sp = u[0] * self.lx_loc
             y_sp = u[1] * ly
+        if self.slab is not None:
+            # into this slab, shifted upwind by the launch drift
+            x_sp = self.x_off + x_sp - self.x_drift0
         w_sp = 1.0
         if self.cam_importance:
             x_sp, y_sp, w_sp = self._importance_launch(x_sp, y_sp, u_imp)
@@ -453,7 +583,14 @@ class FlightKernel:
         iy0 = torch.where(spawn, self._local_iy(y), c.iy0)
         plen = torch.where(spawn, 0.0, c.plen)
         direct = spawn | c.direct
-        active = alive
+        if self.slab is None:
+            active = alive
+        elif self.roam:
+            # out of the slab a lane freezes until migrated, except above
+            # the deck top (reference :499-517)
+            active = alive & (self._in_slab(x) | (z > self.zd_hi))
+        else:
+            active = alive & self._in_slab(x)
 
         # ---------------- analytic flight through the majorant ----------------
         going_up = uz > 0.0
@@ -497,8 +634,13 @@ class FlightKernel:
         s_exit = torch.sum(seg, dim=0)
 
         if self.tile_clamp:
-            tx_lo = (txp * self.tile) * dx + offx
-            tx_hi = torch.clamp((txp + 1) * self.tile, max=st.nx) * dx + offx
+            tx_lo = (txp * self.tile) * dx
+            tx_hi = torch.clamp((txp + 1) * self.tile, max=st.nx) * dx
+            if self.slab is not None:
+                tx_lo = self.x_off + tx_lo
+                tx_hi = self.x_off + tx_hi
+            tx_lo = tx_lo + offx
+            tx_hi = tx_hi + offx
             ty_lo = (typ * self.tile) * dy + offy
             ty_hi = torch.clamp((typ + 1) * self.tile, max=st.ny) * dy + offy
             sfx = torch.where(ux > 1e-7, (tx_hi - x) / ux,
@@ -510,6 +652,13 @@ class FlightKernel:
             if self.p3d:
                 # pinned lanes see a medium that no longer varies with x, y
                 can_clamp = can_clamp & (nscat < self.p3d)
+            if self.slab is not None:
+                # a roamer whose deck entry lies in another slab read a
+                # clamped local tile: its faces are bogus, it takes the
+                # slab clamp instead (reference :579-589)
+                can_clamp = can_clamp & self._in_slab(xe_w)
+        if self.slab is not None:
+            clamp_s, starts_above = self._slab_clamp(x, z, ux, uz, inv_uz)
 
         if kx:
             # crossing-count prelude (reference :625-636): the k-th crossing
@@ -529,6 +678,8 @@ class FlightKernel:
             # escape outcome is tallied deterministically for flux targets
             clampable = can_clamp if self.tile_clamp \
                 else torch.zeros_like(active)
+            if self.slab is not None:
+                clampable = clampable | (clamp_s < s_exit)
             if kx:
                 n_to_exit = torch.where(going_up, nz + 1 - n_le, n_below)
                 clampable = clampable | (n_to_exit > kx)
@@ -551,12 +702,22 @@ class FlightKernel:
         s_star = torch.where(collided, s_col, s_exit)
         s_star = torch.where(active, s_star, 0.0)
 
+        clamped = None
+        if self.slab is not None:
+            # clamp at the slab face or the remote deck entry: the voxels
+            # beyond live in another slab, so the lane advances to the
+            # clamp point, freezes and is migrated (reference :668-677)
+            clamped = active & (clamp_s < s_star)
+            s_star = torch.minimum(s_star, clamp_s)
+            collided = collided & ~clamped
         if self.tile_clamp:
             # clamp at the faces of the deck-entry tile (exact by
             # memorylessness: tau is redrawn every step)
             tclamp = can_clamp & (s_tile < s_star)
             s_star = torch.where(tclamp, s_tile, s_star)
             collided = collided & ~tclamp
+            if clamped is not None:
+                clamped = clamped & ~tclamp
         else:
             tclamp = torch.zeros_like(active)
 
@@ -579,6 +740,8 @@ class FlightKernel:
             s_star = torch.where(zclamp, s_zc, s_star)
             collided = collided & ~zclamp
             tclamp = tclamp & ~zclamp
+            if clamped is not None:
+                clamped = clamped & ~zclamp
 
         if forcing:
             # the forcing weight, once the collision survived clamping;
@@ -592,6 +755,8 @@ class FlightKernel:
             torch.minimum(d_out, s_star[None, :]) - d_in, min=0.0), seg)
         trav = torch.where(active[None, :], trav, 0.0)           # (Nz, B)
         term = active & ~collided & ~tclamp & ~zclamp
+        if clamped is not None:
+            term = term & ~clamped
 
         flux, absorbed = c.flux, c.absorbed
         if not self.radiance:
@@ -702,6 +867,11 @@ class FlightKernel:
         if not st.ipa:
             # under IPA x and y never move
             x = torch.where(active, torch.remainder(x + ux * s_star, lx), x)
+            if clamped is not None:
+                # nudge slab-clamped lanes past the face, so that slab
+                # ownership is never ambiguous (reference :903-910)
+                x = torch.where(clamped, torch.remainder(
+                    x + torch.sign(ux) * (1e-3 * dx), lx), x)
             y = torch.where(active, torch.remainder(y + uy * s_star, ly), y)
             if self.tile_clamp:
                 # place tile-clamped lanes robustly past the crossed face
@@ -715,6 +885,12 @@ class FlightKernel:
                     yf + torch.sign(uy) * 1e-3 * dy, ly), y)
         z = torch.where(active, torch.clamp(z + uz * s_star, 0.0, self.z_top),
                         z)
+        if clamped is not None and self.roam:
+            # a descending roamer clamped at deck entry lands AT the deck
+            # top, not an ulp above it, where it would re-clamp with an
+            # infinitesimal step forever (reference :922-929)
+            z = torch.where(clamped & starts_above & (uz < 0.0),
+                            torch.clamp(z, max=self.zd_hi), z)
         if kx:
             # crossing-count-clamped lanes stop EXACTLY on the level, so the
             # next flight's < / <= level counts neither drop nor repeat it
@@ -866,15 +1042,16 @@ class FlightKernel:
                 if self.nxr * self.nyr == 1:
                     pidx = None
                 elif st.ipa:
-                    # IPA: the birth pixel, no slant projection
-                    pidx = ix0.long() * self.nyr + iy0
+                    # IPA: the birth pixel (global column under a slab), no
+                    # slant projection
+                    pidx = (ix0.long() + self.ix_shift) * self.nyr + iy0
                 else:
                     # slant projection onto the TOA image plane, periodic
                     # in x and y
                     xp = torch.remainder(x - sx / mu_s * z, lx)
                     yp = torch.remainder(y - sy / mu_s * z, ly)
                     gix = torch.clamp(torch.floor(xp / dx).to(_I),
-                                      0, st.nx - 1)
+                                      0, self.nx_glob - 1)
                     pidx = gix.long() * self.nyr + self._local_iy(yp)
                 if cfg.pathlength:
                     # the path so far plus the slant exit path toward TOA

@@ -13,8 +13,10 @@ correlated g-points or the reference's independent per-g protocol
 (``spectral='independent'``: one pass per g-point, the budget split by
 :func:`distribute_photon`), and smooths the mean fields with
 ``diffusion``; :class:`Result` saves to and loads from the reference's HDF5
-layout (``h5py``, imported only there).  Multi-device runs (``mesh=``,
-ROADMAP A12) raise ``NotImplementedError``.  The quasi-radiance target
+layout (``h5py``, imported only there).  With ``mesh=`` (a
+:class:`~er3t_tpu_torch.dist.mesh.Mesh`) every pass runs on its ranks:
+x-slab decomposed with photon migration where the mesh's 'x' axis is
+longer than 1, photon-parallel otherwise.  The quasi-radiance target
 (MCARaTS ``Wld_mtarget=3``) is :func:`~.quasi.quasi_radiance`.
 
 Unlike the reference, a chunk that fails is not retried or skipped: the
@@ -30,6 +32,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..dist.decomp import transport_decomp
+from ..dist.photon import transport_photon_parallel
 from . import out
 from .mc import SolverConfig, run_transport
 from .mc_flight import run_transport_flight
@@ -128,13 +132,15 @@ def _write_fields(group, fields, compression):
 
 
 def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
-                flux_w=None, rad_w=None):
+                flux_w=None, rad_w=None, mesh=None):
     """One independent pass, split into chunks of at most ``chunk`` photons
     (chunks differ only by seed, ``seed + 7919 * i`` as in the reference),
     on the flight engine for radiance or ``flux_engine='flight'``, else on
-    the marching engine (reference :150-172).  Returns the summed image,
-    flux, absorbed and pathlength-weighted image tallies on the host and
-    the launched count."""
+    the marching engine; with ``mesh``, on its ranks (reference
+    :150-172): decomposed where its 'x' axis is longer than 1, else
+    photon-parallel.  Returns the summed image, flux, absorbed and
+    pathlength-weighted image tallies on the host and the launched
+    count."""
     use_flight = cfg.target == 'radiance' or cfg.flux_engine == 'flight'
     sums = None
     n_total = 0
@@ -142,7 +148,12 @@ def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
     i = 0
     while remaining > 0:
         n_c = min(remaining, chunk)
-        if use_flight:
+        if mesh is not None:
+            dist_run = (transport_decomp if mesh.shape['x'] > 1
+                        else transport_photon_parallel)
+            tal = dist_run(scene, static, cfg, n_c, mesh,
+                           seed=seed + 7919 * i, flux_w=flux_w, rad_w=rad_w)
+        elif use_flight:
             tal = run_transport_flight(scene, static, cfg, n_c,
                                        seed + 7919 * i, device, flux_w=flux_w,
                                        rad_w=rad_w)
@@ -205,7 +216,9 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     ``zloc``, ``phi``, ``the``, ``psi``, ``qmax``, ``npix`` and ``apsize``
     (any subset; the rest default as in the reference) selects the fisheye
     camera, whose ``rad`` is (npix, npix) with NaN outside the fisheye
-    circle; ``pathlength`` adds ``plen`` to radiance results."""
+    circle; ``pathlength`` adds ``plen`` to radiance results.  ``mesh``:
+    a mesh of ``er3t_tpu_torch.dist.mesh.make_mesh`` on whose ranks every
+    pass runs (each rank takes a copy of the scene on its device)."""
     if mode not in ('mean', 'all'):
         raise ValueError(f"mode must be 'mean' or 'all'; got {mode!r}")
     if atm is None or abs_coef is None:
@@ -248,9 +261,6 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         cam_qmax=float(cam['qmax']), cam_npix=int(cam['npix']),
         cam_apsize=float(cam['apsize']),
         qmc_launch=bool(qmc_launch))
-    if mesh is not None:
-        raise NotImplementedError('er3t_tpu_torch solve: multi-device runs '
-                                  '(mesh=) are ROADMAP A12')
     if spectral not in ('correlated', 'independent'):
         raise ValueError(spectral)
 
@@ -286,13 +296,13 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
         if spectral == 'independent':
             red, n_l = _independent_g_run(
                 scene, static, cfg, abs_coef, target, int(photons), mu0, date,
-                seed + 1000 * r, device, chunk=chunk)
+                seed + 1000 * r, device, chunk=chunk, mesh=mesh)
             n_eff += n_l
             per_run.append(red)
             continue
         rad_t, flux_t, absd, rad_pl, n_l = _single_run(
             scene, static, cfg, int(photons), seed + 1000003 * r, device,
-            chunk=chunk, flux_w=flux_w, rad_w=rad_w)
+            chunk=chunk, flux_w=flux_w, rad_w=rad_w, mesh=mesh)
         n_eff += n_l
         if target == 'radiance':
             red = _reduce_image(rad_t, n_l, abs_coef, mu0, static, cfg, date,
@@ -341,7 +351,7 @@ def g_slice(scene, static, g):
 
 
 def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
-                       date, seed, device, chunk=4_000_000):
+                       date, seed, device, chunk=4_000_000, mesh=None):
     """The reference's per-g protocol (``er3t_tpu/rtm/solver.py:434-505``):
     one pass per g-point, ``seed + g``, with ``distribute_photon``'s share
     of the budget; each pass runs ng = 1 and contracts in the step with
@@ -369,7 +379,7 @@ def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
         scene_g, static_g = g_slice(scene, static, g)
         rad_t, flux_t, _, rad_pl, n_l = _single_run(
             scene_g, static_g, cfg, int(dist[g]), seed + g, device,
-            chunk=chunk, flux_w=flux_w1, rad_w=rad_w1)
+            chunk=chunk, flux_w=flux_w1, rad_w=rad_w1, mesh=mesh)
         n_total += n_l
         wsc = 1.0 / max(n_l, 1)
         if acc_rad is None:

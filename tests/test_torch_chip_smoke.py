@@ -34,14 +34,21 @@ LIBRARY = {'take_reps', 'gather_row_sum', 'take2d', 'smem_stage'}
 PHASE7 = ('ipa', 'p3d', 'ipa_flux', 'camera', 'camera_air', 'cf_dtau',
           'split_wmax', 'rr_value', 'sort_coherent', 'production')
 PHASE8 = ('march_flux', 'march_rad', 'march_hr')
+PHASE9 = ('photon', 'decomp', 'flux', 'solve', 'process_group')
 
 
 def _small_scene(device):
+    """12 x 12 columns of 1 km, so that phase 9's slabs (two here) are 6 km
+    wide (the bench scene's four are 12 km).  Narrow slabs drain slowly in
+    both packages: a near-horizontal lane below the deck top (anywhere,
+    under per-column flux) clamps at every slab face it crosses and waits
+    a superstep for each migration; at 3 km the reference's per-column
+    flux run reached its round cap."""
     levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 2.0)])
     atm = atm_atmmod(levels)
     ab = abs_synthetic(650.0, atm, ng=4)
-    cld = cld_gen_hem(nx=12, ny=12, nz=4, dx=0.1, dy=0.1, dz=0.5,
-                      cloud_frac_tgt=0.25, radii=(0.3,), cot_scale=15.0,
+    cld = cld_gen_hem(nx=12, ny=12, nz=4, dx=1.0, dy=1.0, dz=0.5,
+                      cloud_frac_tgt=0.25, radii=(3.0,), cot_scale=15.0,
                       cloud_base=0.5, seed=7)
     kw = dict(cld=cld, surface=0.03, solar_zenith_angle=30.0,
               solar_azimuth_angle=45.0, forward_trunc_deg=25.0)
@@ -101,6 +108,9 @@ def rehearsal(monkeypatch, tmp_path):
                         ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', wide),
                         ('MODES_PHOTONS', 6_000), ('IPA_FLUX_REF_RUNS', wide),
                         ('MARCH_PHOTONS', 6_000),
+                        ('DIST_RANKS', 2), ('DIST_PHOTONS', 8_000),
+                        ('DIST_FLUX_PHOTONS', 8_000),
+                        ('DIST_SOLVE_PHOTONS', 4_000),
                         ('MARCH_FLUX_REF_RUNS', wide),
                         ('MARCH_RAD_REF_RUNS', tuple(r[0] for r in wide)),
                         ('MARCH_HR_REF_RUNS', tuple(r[0] for r in wide)),
@@ -221,8 +231,32 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
         assert abs(rec['rel_diff_mean']) <= chip_smoke.QUASI_RTOL, name
         assert rec['max_abs_rel_diff_block'] <= chip_smoke.QUASI_RTOL, name
         assert rec['wall_s'] > 0 and len(rec['blocks']) == 16, name
+    dist = report['dist']
+    assert set(dist) == set(PHASE9)
+    for name, rec in dist.items():
+        assert rec['phase_pair_launches'] == rec['steps'] > 0, name
+        assert rec['steps'] == sum(map(sum, rec['rank_steps'])), name
+        assert kernels[0][f'dist_{name}_launches'] == rec['steps'], name
+        assert all(n == 0 for k, n in rec['launches'].items()
+                   if k != 'phase_pair'), name
+        assert rec['photons'] == (8_000 if name in ('photon', 'decomp', 'flux')
+                                  else 4_000), name
+    assert [len(r) for r in dist['photon']['rank_steps']] == [2]
+    assert dist['process_group']['rank_steps'] == [[
+        dist['process_group']['steps']]]
+    assert dist['process_group']['backend'] == 'gloo'
+    for name in ('decomp', 'flux', 'solve'):
+        rec = dist[name]
+        assert all(r < m for r, m in zip(rec['rounds'], rec['max_rounds']))
+        assert rec['shipped'] > 0 and 0 < rec['migrate_share'] < 1, name
+    for name in ('photon', 'decomp', 'solve', 'process_group'):
+        assert dist[name]['domain_mean']['value'] > 0, name
+    assert dist['decomp']['k1_bitwise_steps'] >= 2
+    assert dist['flux']['toa_direct_max_rel_err'] <= 1e-5
+    assert any(line.startswith('# phase 9 decomp: ') for line in lines)
     k1_keys = {'flux_launches'} | {f'{m}_launches'
-                                   for m in PHASE7 + PHASE8}
+                                   for m in PHASE7 + PHASE8} \
+        | {f'dist_{m}_launches' for m in PHASE9}
     for k in kernels:
         assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
                                  else set()), k['name']

@@ -567,3 +567,160 @@ def test_device_ms_of_the_launch_floor_is_finite_and_positive(cuda):
     for per_launch in (False, True):
         ms = device_ms(lambda: gather.noop(cuda), per_launch=per_launch)
         assert np.isfinite(ms) and 0 < ms < 1.0
+
+
+def _ring_carry(rng, b, dev, ng=4, dead=0.3):
+    """Random lanes on a ring of 4 slabs of width 1 (x in [0, 4)), a third
+    above the deck top z = 2, each with a distinct wsc."""
+    def f(*shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape)
+                                .astype(np.float32)).to(dev)
+    return mc_flight.FlightCarry(
+        x=torch.from_numpy(rng.uniform(0, 4, b).astype(np.float32)).to(dev),
+        y=f(b), z=torch.from_numpy(rng.uniform(0, 3, b)
+                                   .astype(np.float32)).to(dev),
+        ux=f(b), uy=f(b), uz=f(b),
+        wsc=torch.from_numpy(rng.permutation(b).astype(np.float32)).to(dev),
+        labs=f(ng + 1, b), tau=f(b),
+        nscat=torch.from_numpy(rng.integers(0, 2 ** 30, b, dtype=np.int32)
+                               ).to(dev),
+        alive=torch.from_numpy(rng.uniform(size=b) >= dead).to(dev),
+        ix0=torch.from_numpy(rng.integers(2 ** 24, 2 ** 30, b,
+                                          dtype=np.int32)).to(dev),
+        iy0=torch.from_numpy(rng.integers(0, 2 ** 30, b, dtype=np.int32)
+                             ).to(dev),
+        plen=f(b), direct=torch.from_numpy(rng.uniform(size=b) < 0.5).to(dev),
+        launched=torch.tensor(0, device=dev), step=0,
+        rad=torch.zeros(1, device=dev), rad_pl=torch.zeros(1, device=dev),
+        flux=torch.zeros(1, device=dev), absorbed=torch.zeros(1, device=dev))
+
+
+def _alive_rows(c):
+    m, _ = mc_flight.lane_matrix(c)
+    return sorted(bytes(r) for r in m[c.alive].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dead', [0.3, 0.97], ids=['busy', 'drain'])
+def test_migration_conserves_photons_on_the_card(cuda, dead):
+    """Two swaps (right, then left) on a ring of 4 ranks on cuda:0, B =
+    2^17, window B / 4: the alive lanes over all ranks are the same
+    multiset of packed rows (on the card the winner of duplicate scatter
+    indices is undefined: no clone, no loss), lanes shipped."""
+    from er3t_tpu_torch.dist.decomp import migrate_dir
+    from er3t_tpu_torch.dist.mesh import make_mesh
+    rng = np.random.default_rng(4)
+    b = 1 << 17
+    mesh = make_mesh(4, device=[cuda] * 4)
+    cs = [_ring_carry(rng, b, cuda, dead=dead) for _ in range(4)]
+    before = sorted(sum((_alive_rows(c) for c in cs), []))
+    counts = [[0, 0] for _ in cs]
+    for right in (True, False):
+        cs = migrate_dir(mesh, cs, b // 4, 1.0, 2.0, True, right, counts)
+    assert sorted(sum((_alive_rows(c) for c in cs), [])) == before
+    assert sum(int(n) for n, _ in counts) > 0
+
+
+@pytest.mark.cuda
+def test_slab_steps_and_decomposed_run_on_the_card(cuda):
+    """Each slab of a ring of 4 over the 32x32 broken-cloud scene: four
+    steps of one carry and deviates on the card and on the CPU (lane state
+    as test_mode_step_on_card_matches_cpu holds it: coordinates to 4e-5
+    of the step's flight, since the card's cumsum and matmul orders move
+    where a clear-sky flight reaches its optical depth by a few ulps over
+    a majorant of ~3e-6 /m; K1 once a step); then a decomposed run of the
+    4 ranks on cuda:0 launches its budget exactly, below its round cap,
+    with a finite image >= 0."""
+    from er3t_tpu_torch.dist.decomp import shard_scene, transport_decomp
+    from er3t_tpu_torch.dist.mesh import make_mesh
+    atm, ab, kw = _broken_inputs()
+    rad_w = spectral_factors(ab, nz_out=1)[0][0]
+    cfg = SolverConfig(target='radiance', batch=4096, n_scat_max=300,
+                       tile_size=3, qmc_launch=True)
+    scenes = {d: build_scene(atm, ab, **kw, device=d) for d in ('cpu', cuda)}
+    rng = np.random.default_rng(5)
+    scale = {'x': 6400.0, 'y': 6400.0, 'z': 20000.0}
+    for i in range(4):
+        kerns = {}
+        for d, (scene, st) in scenes.items():
+            part, st_loc = shard_scene(scene, st, 4, i)
+            kerns[d] = mc_flight.FlightKernel(
+                part, st_loc, cfg, 60000, rad_w=rad_w,
+                slab=mc_flight.SlabSpec(32, 8), x_off=i * 1600.0,
+                spawn_reserve=512)
+        c = kerns['cpu'].carry0(4096)
+        for k in range(4):
+            u = torch.from_numpy(rng.uniform(1e-7, 1 - 1e-7, (14, 4096))
+                                 .astype(np.float32))
+            on = mc_flight.FlightCarry(*[
+                v.to(cuda) if isinstance(v, torch.Tensor) else v for v in c])
+            before = phase_pair.launches
+            got = kerns[cuda].step(on, u.to(cuda), 7)
+            assert phase_pair.launches == before + 1
+            ref = kerns['cpu'].step(c._replace(rad=c.rad.clone()), u, 7)
+            flight = (ref.plen - c.plen).abs()
+            for f in ('x', 'y', 'z'):
+                d = (getattr(got, f).cpu() - getattr(ref, f)).abs()
+                if f != 'z':
+                    d = torch.minimum(d, scale[f] - d)
+                assert bool((d <= torch.clamp(4e-5 * flight,
+                                              min=1e-5 * scale[f])).all()), \
+                    (i, k, f, float(d.max()))
+            for f in ('ux', 'uy', 'uz', 'wsc', 'labs', 'tau', 'plen'):
+                np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                           getattr(ref, f).numpy(),
+                                           rtol=1e-4, atol=1e-5)
+            for f in ('alive', 'nscat', 'direct', 'ix0', 'iy0'):
+                same = (getattr(got, f).cpu() == getattr(ref, f)).float()
+                assert float(same.mean()) >= 0.999, (i, k, f)
+            assert int(got.launched) == int(ref.launched)
+            assert float(got.rad.sum()) == pytest.approx(
+                float(ref.rad.sum()), rel=1e-4)
+            c = ref
+    scene, st = scenes[cuda]
+    stats = {}
+    tal = transport_decomp(scene, st, cfg, 40000,
+                           make_mesh(4, device=[cuda] * 4), seed=3,
+                           rad_w=rad_w, stats=stats)
+    img = tal.rad.cpu().numpy()
+    assert int(tal.n_launched) == 40000
+    assert stats['rounds'] < stats['max_rounds'] and stats['shipped'] > 0
+    assert img.shape == (32, 32, 1) and np.isfinite(img).all() \
+        and (img >= 0).all() and img.sum() > 0
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_sums_the_tallies(cuda):
+    """init_distributed with explicit arguments (NCCL, world 1, a free
+    localhost port): a photon-parallel run through the process group's
+    all_reduce gives the tallies of the same rank run in this process."""
+    import socket
+    import torch.distributed as dist
+    from er3t_tpu_torch.dist.mesh import init_distributed, make_mesh
+    from er3t_tpu_torch.dist.photon import transport_photon_parallel
+    atm, ab, kw = _broken_inputs()
+    rad_w = spectral_factors(ab, nz_out=1)[0][0]
+    scene, st = build_scene(atm, ab, **kw, device=cuda)
+    cfg = SolverConfig(target='radiance', batch=4096, n_scat_max=300,
+                       tile_size=16, qmc_launch=True)
+    local = transport_photon_parallel(scene, st, cfg, 20000,
+                                      make_mesh(1, device=[cuda]), seed=9,
+                                      rad_w=rad_w)
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    init_distributed(f'tcp://127.0.0.1:{port}', world_size=1, rank=0,
+                     device=cuda, timeout_s=60)
+    try:
+        assert dist.get_backend() == 'nccl'
+        mesh = make_mesh(device=cuda)
+        assert mesh.size == 1 and type(mesh.comm).__name__ == 'ProcessComm'
+        tal = transport_photon_parallel(scene, st, cfg, 20000, mesh, seed=9,
+                                        rad_w=rad_w)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert int(tal.n_launched) == int(local.n_launched) == 20000
+    assert int(tal.n_steps) == int(local.n_steps)
+    assert float(tal.rad.sum()) == pytest.approx(float(local.rad.sum()),
+                                                 rel=1e-5)

@@ -90,26 +90,37 @@ def close(got, ref, what, atol):
 
 
 def step_parity(scn, st, kw, steps=6, rad_w=None, flux_w=None,
-                n_photon=60000, flight_rtol=2e-6):
+                n_photon=60000, flight_rtol=2e-6, slab=None, x_off=0.0,
+                spawn_reserve=0):
     """Step both packages ``steps`` times from the reference's carries with
     the reference's deviates; continuous fields to rtol 1e-4 / atol 1e-5,
     coordinates to the larger of 1e-5 of the domain and ``flight_rtol`` of
     the step's flight (see below), discrete fields on >= 99.9 % of
     lanes, the launch count exactly, the image and pathlength tallies in
     total to rel 1e-4, flux and absorbed tallies elementwise (3e-5 of the
-    largest row for domain-average rows, else 1e-5).  Returns the port's
-    last carry and the kernel."""
+    largest row for domain-average rows, else 1e-5).  With ``slab``
+    ((nx_global, nx_local)) ``scn``/``st`` are a slab's shard, at
+    ``x_off`` [m], stepped by both packages' x-slab branch with
+    ``spawn_reserve``.  Returns the port's last carry and the kernel."""
     key = jax.random.key(0)
+    slab_kw = {}
+    if slab is not None:
+        slab_kw = dict(slab=jmf.SlabSpec(*slab), x_off=jnp.float32(x_off),
+                       spawn_reserve=spawn_reserve)
     body, _, c = jmf.make_flight_kernel(
         scn, st, JConfig(**kw), jnp.int32(n_photon), key,
         rad_w=None if rad_w is None else jnp.asarray(rad_w, jnp.float32),
-        flux_w=None if flux_w is None else jnp.asarray(flux_w, jnp.float32))
+        flux_w=None if flux_w is None else jnp.asarray(flux_w, jnp.float32),
+        **slab_kw)
     body = jax.jit(body)
     q_off = int(jax.random.randint(jax.random.fold_in(key, 0x3FFFFFFF), (),
                                    0, st.nx * st.ny, dtype=jnp.int32))
+    if slab is not None:
+        slab_kw = dict(slab=tmf.SlabSpec(*slab), x_off=x_off,
+                       spawn_reserve=spawn_reserve)
     kern = tmf.FlightKernel(*scene_from_numpy(scn, st, 'cpu'), TConfig(**kw),
-                            n_photon, rad_w=rad_w, flux_w=flux_w)
-    scale = {'x': st.nx * st.dx, 'y': st.ny * st.dy,
+                            n_photon, rad_w=rad_w, flux_w=flux_w, **slab_kw)
+    scale = {'x': kern.nx_glob * st.dx, 'y': st.ny * st.dy,
              'z': float(scn.z_lev[-1])}
 
     def draw(offset, shape):

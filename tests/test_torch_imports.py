@@ -9,6 +9,7 @@ import sys
 
 import pytest
 
+from er3t_tpu_torch.dist import mesh
 from er3t_tpu_torch.rtm import mc, mc_flight, quasi, scene, solver
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,7 +30,9 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.rtm.out', 'er3t_tpu_torch.rtm.solver',
                 'er3t_tpu_torch.rtm.quasi', 'er3t_tpu_torch.rtm.oned',
                 'er3t_tpu_torch.probes', 'er3t_tpu_torch.probes.gather',
-                'er3t_tpu_torch.probes.gather_probe', 'chip_smoke')
+                'er3t_tpu_torch.probes.gather_probe', 'er3t_tpu_torch.dist',
+                'er3t_tpu_torch.dist.mesh', 'er3t_tpu_torch.dist.photon',
+                'er3t_tpu_torch.dist.decomp', 'chip_smoke')
 
 
 def _python(code, **env):
@@ -56,10 +59,10 @@ def test_port_and_chip_smoke_import_no_jax():
 @pytest.mark.parametrize('fn', [scene.build_scene, solver.solve,
                                 mc_flight.run_transport_flight,
                                 mc.run_transport, mc.transport,
-                                quasi.quasi_radiance],
+                                quasi.quasi_radiance, mesh.make_mesh],
                          ids=['build_scene', 'solve', 'run_transport_flight',
                               'run_transport', 'transport',
-                              'quasi_radiance'])
+                              'quasi_radiance', 'make_mesh'])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters['device'].default == 'cuda'
 
@@ -78,6 +81,18 @@ def test_build_scene_without_device_raises_without_a_card():
     assert proc.returncode != 0
     assert 'ran' not in proc.stdout
     assert 'CUDA' in proc.stderr or 'cuda' in proc.stderr
+
+
+def test_make_mesh_without_device_raises_without_a_card():
+    """make_mesh() asks for every visible card: with none it raises, and
+    nothing carries on with CPU ranks."""
+    code = ('from er3t_tpu_torch.dist.mesh import make_mesh\n'
+            'make_mesh()\n'
+            "print('ran')\n")
+    proc = _python(code, CUDA_VISIBLE_DEVICES='')
+    assert proc.returncode != 0
+    assert 'ran' not in proc.stdout
+    assert 'no CUDA device' in proc.stderr
 
 
 def test_chip_smoke_refuses_without_cuda():

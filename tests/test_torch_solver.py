@@ -1,6 +1,7 @@
 """The port's front door (er3t_tpu_torch.rtm.solver.solve) and spectral
-reduction against er3t_tpu's, the options the port refuses, and the
-options it once refused, each a short run beside er3t_tpu's."""
+reduction against er3t_tpu's, and the options it once refused, each a
+short run beside er3t_tpu's (multi-device runs on meshes of CPU ranks
+beside the reference's on its virtual devices)."""
 
 import dataclasses
 import datetime
@@ -13,11 +14,13 @@ import torch
 from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.abs import abs_synthetic
 from er3t_tpu.pre.cld import cld_gen_hom
+from er3t_tpu.dist.mesh import make_mesh as jmake_mesh
 from er3t_tpu.rtm import mc_flight as jmf
 from er3t_tpu.rtm import out as jout
 from er3t_tpu.rtm import solver as jsolver
 from er3t_tpu.rtm.mc import SolverConfig as JConfig
 from er3t_tpu.rtm.scene import build_scene as jbuild_scene
+from er3t_tpu_torch.dist.mesh import make_mesh as tmake_mesh
 from er3t_tpu_torch.rtm import out as tout
 from er3t_tpu_torch.rtm import solver as tsolver
 from er3t_tpu_torch.rtm.mc import SolverConfig
@@ -75,15 +78,6 @@ def test_spectral_reduction_equals_reference(case, date):
         np.testing.assert_array_equal(c['rad'], b['rad'])
 
 
-# what the port still refuses, each naming its ROADMAP item
-UNPORTED = {'mesh': 'A12'}
-
-
-def unported(bad):
-    """The ROADMAP item of a refused option in ``bad``, or None."""
-    return next((UNPORTED[k] for k in bad if k in UNPORTED), None)
-
-
 def same_result(got, ref):
     """A short run of the port's solve against the reference's: the same
     launched photons, toa, fields, shapes and NaN masks, finite where the
@@ -106,21 +100,31 @@ def same_result(got, ref):
     dict(solver='p3d'), dict(sensor_type='camera'), dict(camera={'npix': 8}),
     dict(spectral='independent', sensor_type='camera'),
     dict(spectral='independent', pathlength=True), dict(cf_dtau=0.5),
-    dict(pathlength=True), dict(split_wmax=2.0), dict(mesh='x-slab mesh')],
+    dict(pathlength=True), dict(split_wmax=2.0)],
     ids=lambda d: '-'.join(f'{k}={v}' for k, v in d.items()))
 def test_solve_refuses_unported_options(case, bad):
-    """mesh= raises NotImplementedError naming ROADMAP A12.  The other
-    cases, refused until the marching flux engine, IPA, partial 3D, the
-    camera, pathlength, forcing and splitting were ported, now run: a short
-    solve of each matches the reference's (same_result)."""
+    """Every case, refused until the marching flux engine, IPA, partial
+    3D, the camera, pathlength, forcing and splitting were ported, now
+    runs: a short solve of each matches the reference's (same_result).
+    Nothing is refused any more (mesh=: test_solve_mesh_matches_reference)."""
     kw = dict(photons=2000, n_run=1, batch=1 << 10, seed=5, **bad)
-    item = unported(bad)
-    if item:
-        with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-            tsolver.solve(**case, device='cpu', **kw)
-        return
     same_result(tsolver.solve(**case, device='cpu', **kw),
                 jsolver.solve(**case, **kw))
+
+
+@pytest.mark.parametrize('x', [4, 1], ids=['decomp_x4', 'photon_x1'])
+def test_solve_mesh_matches_reference(case, x):
+    """solve(mesh=...), refused until the dist layer was ported, runs each
+    package on its own mesh of 4 ranks (the port's CPU ranks, the
+    reference's virtual devices): x = 4 slabs decomposed with migration,
+    x = 1 photon-parallel; a short solve matches the reference's
+    (same_result: the same photons launched, 500 a rank)."""
+    kw = dict(photons=2000, n_run=1, batch=1 << 10, seed=5, tile_size=2)
+    got = tsolver.solve(**case, device='cpu', **kw,
+                        mesh=tmake_mesh(4, decomp=x, device='cpu'))
+    same_result(got, jsolver.solve(**case, **kw,
+                                   mesh=jmake_mesh(4, decomp=x)))
+    assert float(np.mean(got['rad'])) > 0
 
 
 @pytest.mark.parametrize('bad', [

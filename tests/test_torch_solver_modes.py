@@ -345,7 +345,7 @@ def test_independent_protocol_equals_reference_on_the_same_tallies(
         return _fake_tallies(static, cfg, n_photon, seed, rad_w, flux_w)
 
     def port_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
-                 flux_w=None, rad_w=None):
+                 flux_w=None, rad_w=None, mesh=None):
         assert scene.kabs.is_contiguous()
         rad, flux, rad_pl = record('port', scene, static, cfg, n_photon, seed,
                                    flux_w, rad_w)
