@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (er3t_tpu_torch) on one NVIDIA GPU.
 
-    python chip_smoke.py                 # needs one CUDA card; ~5 min
+    python chip_smoke.py                 # needs one CUDA card; ~10 min
     python chip_smoke.py --profile       # also a torch.profiler window
 
 Phases (any failure raises and the exit code is non-zero):
@@ -49,13 +49,13 @@ Phases (any failure raises and the exit code is non-zero):
    scene, each run with every launch count set to 0 just before it and
    phase_pair launched once per flight step of it, its wall, steps and
    photons/s printed: (a) solve(solver='ipa') and solve(solver='p3d',
-   p3d_order=1), 2e6 photons x 2 runs, domain means against the JAX
+   p3d_order=1), one run of 2e6 photons, domain means against the JAX
    references below; IPA flux (run_transport_flight, per-column tallies,
    flux_kcross=4, flux_w, 2e6 photons): TOA down-direct = toa * mu0 in every
    column, surface f_down and TOA f_up against the JAX references; (b) the
    ground all-sky camera (solve's default dict, rad_w) and an airborne
    down-looking camera with a 50 m aperture and pathlength=True (per-g
-   image), 2e6 photons x 2 runs each: the NaN mask is
+   image), one run of 2e6 photons each: the NaN mask is
    reduce_camera_radiance's, the mean over the finite pixels (and the
    airborne camera's mean pathlength) against the JAX references, and
    phase_pair bitwise against its plain version on inputs captured from
@@ -86,9 +86,9 @@ Phases (any failure raises and the exit code is non-zero):
    launch count set to 0 just before it, phase_pair launched once per
    flight step of every rank, its wall, steps per rank, rounds and
    photons/s printed: (a) transport_photon_parallel on make_mesh(4,
-   decomp=1), 2e6 photons: the budget exactly, the domain mean against the
+   decomp=1), 1e6 photons: the budget exactly, the domain mean against the
    radiance reference; (b) transport_decomp on make_mesh(4, decomp=4), 120
-   columns a slab, 2e6 photons: the budget exactly, rounds below the cap,
+   columns a slab, 1e6 photons: the budget exactly, rounds below the cap,
    the domain mean against the radiance reference, the lanes shipped per
    superstep, those held back by the window or the receiver, and the wall
    in migration (pack, exchange, unpack) against the wall in flight steps;
@@ -102,6 +102,27 @@ Phases (any failure raises and the exit code is non-zero):
    photon-parallel run of 1e6 photons through its all_reduce: the budget
    exactly, the mean against the radiance reference; the group destroyed
    after;
+10. the application layer (er3t_tpu_torch.apps and the file-backed
+   loaders), each path with every launch count set to 0 just before it,
+   phase_pair launched once per flight step of it and held bitwise against
+   its plain version on inputs captured from the path's steps (each phase
+   table it ran), its wall, steps and photons/s printed: (a) example case
+   05 on a file-backed scene: a SAM LES snapshot (480 x 480 columns of 0.1
+   km, a deck from 0.5 to 2.5 km; chip_smoke_files, seed 0) and a 16-g
+   database written by gen_abs_16g_h5 as a text tree (the card machine has
+   no h5py), read by cld_les, aer_les and abs_16g_from_txt (synthetic
+   False), then solve(..., aer_3ds=[aer_les(...)], photons=2e6, n_run=2)
+   with the bench geometry: the domain mean against APPS_LES_REF_RUNS;
+   (b) gen_bispectral_lookup_table at its defaults (25 COT x 11 CER IPA
+   columns, 650 and 1600 nm, 2e6 photons each): the table mean and its
+   four quadrant means of each band against APPS_LUT_REF_RUNS,
+   retrieve_cot_cer on three interior nodes returns them exactly; then
+   func_ref_vs_cot at its 31 nodes, 5e5 photons (projects/05): its mean
+   against APPS_CURVE_REF_RUNS, rising from COT 1 in means of five nodes;
+   (c) spectral_flux at 650, 762 and 860 nm, 1e6 photons each, clear sky,
+   surface 0.2: TOA down-direct = toa * mu0, the surface f_down within 3 %
+   and the TOA f_up within 6 % of spec_flx(..., n_streams=8) (the 1D
+   solver is deterministic);
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -128,9 +149,9 @@ over 3.35 TB/s and its float operations over 67 TFLOP/s.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
 build/chip_smoke.json (phase 8 under "march" and "quasi", phase 9 under
-"dist").  With
---profile, 20 radiance steps and 20 flux steps are profiled (keys
-"profile" and "profile_flux").
+"dist", phase 10 under "apps"; phase 10's input files go to
+build/phase10/).  With --profile, 20 radiance steps and 20 flux steps
+are profiled (keys "profile" and "profile_flux").
 """
 
 import argparse
@@ -147,11 +168,19 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+import chip_smoke_files
 from er3t_tpu_torch import _build
+from er3t_tpu_torch.apps.lut import (func_ref_vs_cot,
+                                     gen_bispectral_lookup_table,
+                                     retrieve_cot_cer)
+from er3t_tpu_torch.apps.spectral import spec_flx, spectral_flux
 from er3t_tpu_torch.dist.mesh import init_distributed, make_mesh
 from er3t_tpu_torch.pre.abs import abs_synthetic
+from er3t_tpu_torch.pre.abs_16g_db import abs_16g_from_txt
+from er3t_tpu_torch.pre.abs_gen import gen_abs_16g_h5
+from er3t_tpu_torch.pre.aer import aer_les
 from er3t_tpu_torch.pre.atm import atm_atmmod
-from er3t_tpu_torch.pre.cld import cld_gen_hem
+from er3t_tpu_torch.pre.cld import cld_gen_hem, cld_les
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
@@ -467,6 +496,86 @@ QUASI_NPIX = 128
 QUASI_STEPS = 512
 QUASI_RTOL = 1e-4
 
+# Phase 10 (a), example case 05 on a file-backed scene: the SAM LES
+# snapshot of chip_smoke_files (seed 0) through cld_les and aer_les, the
+# gases from the 16-g database that gen_abs_16g_h5 writes as a text tree,
+# nadir radiance; the domain mean per seed of 2e6 photons, the JAX package
+# on the CPU (solve's CPU batch, 2^14):
+APPS_LES_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import os
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, chip_smoke_files as F
+from er3t_tpu.pre.abs_16g_db import abs_16g_from_txt
+from er3t_tpu.pre.abs_gen import gen_abs_16g_h5
+from er3t_tpu.pre.aer import aer_les
+from er3t_tpu.pre.atm import atm_atmmod
+from er3t_tpu.pre.cld import cld_les
+from er3t_tpu.pre.pha import pha_mie_wc
+from er3t_tpu.rtm.solver import solve
+os.makedirs('build/phase10_ref', exist_ok=True)
+les = F.write_les_snapshot('build/phase10_ref/les.nc', seed=0)
+db = F.write_abs_16g_txt('build/phase10_ref/abs_16g', [650.0], gen_abs_16g_h5)
+atm = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
+                                 np.arange(3.0, 20.1, 1.0)]))
+ab = abs_16g_from_txt(650.0, atm, fdir_k=db)
+cld = cld_les(les, coarsen=F.LES_COARSEN)
+aer = aer_les(les, ssa=0.9, asy=0.7, coarsen=F.LES_COARSEN, ext_scale=0.1)
+for seed in range(4):
+    res = solve(atm=atm, abs_coef=ab, cld=cld, pha=pha_mie_wc(650.0),
+                aer_3ds=[aer], surface=0.03, target='radiance',
+                solar_zenith_angle=30.0, solar_azimuth_angle=45.0,
+                forward_trunc_deg=5.0, photons=2e6, n_run=1, seed=seed)
+    print(seed, ab.synthetic, float(res['rad'].mean()))
+EOF"""
+APPS_LES_REF_RUNS = (0.04482940956950188, 0.04484552890062332,
+                     0.044589173048734665, 0.0447765551507473)
+APPS_LES_REF_PHOTONS = 2_000_000
+
+# Phase 10 (b), the bispectral LUT at its defaults (25 COT x 11 CER IPA
+# columns, 650 and 1600 nm, 2e6 photons each) and the 31-node reflectance
+# curve of projects/05 (5e5 photons), on the 1-km atmosphere of
+# tests/test_apps.py, the JAX package on the CPU: per seed, the table
+# mean and its four quadrant means (chip_smoke_files.lut_summary) of
+# ref_vis and of ref_nir, the curve's mean, whether it rises from COT 1
+# in means of five nodes (chip_smoke_files.curve_rises) and whether it
+# rises at every node from COT 1:
+APPS_LUT_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, chip_smoke_files as F
+from er3t_tpu.apps.lut import func_ref_vs_cot, gen_bispectral_lookup_table
+from er3t_tpu.pre.atm import atm_atmmod
+atm = atm_atmmod(np.linspace(0, 20, 21))
+for seed in range(4):
+    lut = gen_bispectral_lookup_table(atm, seed=seed)
+    curve = func_ref_vs_cot(atm, photons=5e5, seed=seed)
+    print(seed, F.lut_summary(lut['ref_vis']), F.lut_summary(lut['ref_nir']),
+          float(curve.ref.mean()), F.curve_rises(curve.cot, curve.ref),
+          bool(np.all(np.diff(curve.ref[curve.cot >= 1.0]) > 0)))
+EOF"""
+APPS_LUT_REF_RUNS = (   # per seed: lut_summary of ref_vis, of ref_nir
+    ((0.3253124902062601, 0.07793275137720639, 0.07234408457567881,
+      0.5972534564012126, 0.5946260973498837),
+     (0.18662798284361798, 0.05057484814768136, 0.04105053461373672,
+      0.3805371528183081, 0.28851495622774537)),
+    ((0.32373579283688203, 0.07641271305599927, 0.0749761911009546,
+      0.5959238273237588, 0.588119723715032),
+     (0.18484079313238375, 0.051928337484447945, 0.04136410684644864,
+      0.3813627368987736, 0.27723372976479543)),
+    ((0.32655475343974777, 0.07799685558354925, 0.07017190795839856,
+      0.6090056030918175, 0.588487083675117),
+     (0.18523024558641318, 0.05013342803084706, 0.041188744889230036,
+      0.3803650969920981, 0.2827392458104424)),
+    ((0.3209740296993475, 0.07455138027462971, 0.07333902591637775,
+      0.597911284507727, 0.5772700222796424),
+     (0.18787181172726247, 0.05017653149863935, 0.04458496728233251,
+      0.38670670421160014, 0.28350121985860827)))
+APPS_LUT_REF_PHOTONS = 2_000_000
+APPS_CURVE_REF_RUNS = (0.32411842098478577, 0.3378288177822685,
+                       0.32921166655214573, 0.3316645079779635)
+APPS_CURVE_PHOTONS = 500_000
+
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
 GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
@@ -494,11 +603,21 @@ INDEP_PHOTONS = 2_000_000        # photons per run of the independent-g solve
 FLUX_PHOTONS = 4_000_000         # photons of the timed flux-path run
 HR_PHOTONS = 1_000_000           # photons per run of the heating-rate solve
 MODES_PHOTONS = 2_000_000        # photons per run of each phase-7 path
+MODES_RUNS = 1                   # runs of phase 7's solves: one, so that
+                                 # the script keeps its time limit with
+                                 # phase 10 (a pass's drain tail, not its
+                                 # photons, sets its wall)
 MARCH_PHOTONS = 1_000_000        # photons per run of each phase-8 path
 DIST_RANKS = 4                   # phase 9: ranks, all on this card
-DIST_PHOTONS = 2_000_000         # photons of phase 9 (a) and (b)
+DIST_PHOTONS = 1_000_000         # photons of phase 9 (a) and (b)
 DIST_FLUX_PHOTONS = 1_000_000    # photons of phase 9 (c)
 DIST_SOLVE_PHOTONS = 1_000_000   # photons of phase 9 (d) and (e)
+APPS_LES_PHOTONS = 2_000_000     # phase 10 (a): photons per run, 2 runs
+APPS_LUT_PHOTONS = 2_000_000     # phase 10 (b): per wavelength (the default)
+APPS_FLUX_PHOTONS = 1_000_000    # phase 10 (c): per wavelength
+APPS_FLUX_WAVELENGTHS = (650.0, 762.0, 860.0)
+APPS_LES_SHAPE = chip_smoke_files.LES_SHAPE
+APPS_LUT_PICKS = ((8, 15, 21), (2, 5, 8))   # interior (COT, CER) nodes
 AIR_CAMERA = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
 # phase 7 (c): split_wmax 0.5 (the reference's tests' value): the
 # production config's weights stay at or below 1, so a window of 2 would
@@ -974,6 +1093,10 @@ def run(args, dev):
     max_err = max(max_err, dist_phase(args, dev, atm, ab, scene_kw, scene,
                                       st, report))
 
+    # ---- 10. the application layer ----
+    max_err = max(max_err, apps_phase(
+        args, dev, scene_kw.get('pha') or pha_mie_wc(650.0), report))
+
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1027,6 +1150,8 @@ def run(args, dev):
         pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
     for name, rec in report['dist'].items():
         pp_entry[f'dist_{name}_launches'] = rec['phase_pair_launches']
+    for name, rec in report['apps'].items():
+        pp_entry[f'apps_{name}_launches'] = rec['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name])
@@ -1191,7 +1316,8 @@ def path_run(name, fn, entry='run_transport_flight'):
     launched once per step, and that no marching pass ended at its step
     cap; logs and returns (fn's result, a record of the wall, steps,
     photons, photons/s, lane iterations per photon, launch counts and
-    passes, each marching pass with its cap)."""
+    passes, each marching pass with its cap, each flight pass with its
+    cap and the lanes still in flight when it ended)."""
     passes = []
     engine = getattr(solver, entry)
     marching = entry == 'run_transport'
@@ -1206,6 +1332,9 @@ def path_run(name, fn, entry='run_transport_flight'):
                            wall_s=time.perf_counter() - t0))
         if marching:
             passes[-1]['max_steps'] = stats['max_steps']
+        else:
+            passes[-1].update(cap=stats['max_steps'],
+                              in_flight=stats['in_flight'])
         return tal
     reset_counts()
     torch.cuda.synchronize()
@@ -1246,8 +1375,9 @@ def modes_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     mu0 = float(np.cos(np.deg2rad(30.0)))
     modes = report['modes'] = {}
     common = dict(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
-                  photons=MODES_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
-                  qmc_launch=True, n_scat_max=600, mode='all', device=dev)
+                  photons=MODES_PHOTONS, n_run=MODES_RUNS, batch=BATCH,
+                  tile_size=16, qmc_launch=True, n_scat_max=600, mode='all',
+                  device=dev)
 
     def ref_runs(name, i=0):
         return [r[i] for r in MODES_REF_RUNS[name]]
@@ -1262,11 +1392,11 @@ def modes_phase(args, dev, atm, ab, scene_kw, scene, st, report):
         check(rad.shape == (st.nx, st.ny) and np.isfinite(rad).all()
               and (rad >= 0).all(), f'{name}: rad not a finite (nx, ny) '
                                     f'image >= 0')
-        check(res.n_photon_effective == 2 * MODES_PHOTONS,
+        check(res.n_photon_effective == MODES_RUNS * MODES_PHOTONS,
               f'{name}: launched {res.n_photon_effective} photons')
         rec['domain_mean'] = against_ref(
             f'{name} domain-mean radiance', float(rad.mean()), ref_runs(name),
-            MODES_REF_PHOTONS, 2 * MODES_PHOTONS, 0.01)
+            MODES_REF_PHOTONS, MODES_RUNS * MODES_PHOTONS, 0.01)
         modes[name] = rec
 
     # (a) IPA flux: per-column crossings in the birth column
@@ -1329,18 +1459,18 @@ def modes_phase(args, dev, atm, ab, scene_kw, scene, st, report):
               and np.array_equal(np.isnan(rad), mask)
               and (rad[~mask] >= 0).all(),
               f'{name}: image {rad.shape} without the fisheye NaN mask')
-        check(res.n_photon_effective == 2 * MODES_PHOTONS,
+        check(res.n_photon_effective == MODES_RUNS * MODES_PHOTONS,
               f'{name}: launched {res.n_photon_effective} photons')
         rec['mean_finite'] = against_ref(
             f'{name} mean radiance over the finite pixels',
             float(np.nanmean(rad)), ref_runs(name), MODES_REF_PHOTONS,
-            2 * MODES_PHOTONS, 0.01)
+            MODES_RUNS * MODES_PHOTONS, 0.01)
         if 'pathlength' in extra:
             plen = float(np.mean([r['plen'][r['plen'] > 0].mean()
                                   for r in res.runs]))
             rec['mean_plen'] = against_ref(
                 f'{name} mean pathlength', plen, ref_runs(name, 1),
-                MODES_REF_PHOTONS, 2 * MODES_PHOTONS, 0.01)
+                MODES_REF_PHOTONS, MODES_RUNS * MODES_PHOTONS, 0.01)
         modes[name] = rec
     err = 0.0
     check(len(captured) >= 2, f'{len(captured)} camera-path steps captured')
@@ -1693,6 +1823,195 @@ def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     radiance_mean(f'process group ({backend})', tal, ns, rec)
     runs['process_group'] = rec
     log('# phase 9: ' + json.dumps(runs))
+    return err
+
+
+def pair_capture(captured, seen, per_table=2, every=25):
+    """A stand-in for mc_flight.phase_pair that runs it and keeps a copy of
+    the inputs of steps 0, ``every``, 2 ``every``, ... (``per_table`` of
+    them) of each phase table it is given, the tables of every scene a path
+    builds (both wavelengths of the LUT among them) listed in ``seen`` as
+    [table, calls]."""
+    plain = mc_flight.phase_pair
+
+    def capture(*a):
+        rec = next((r for r in seen if r[0] is a[4]), None)
+        if rec is None:
+            rec = [a[4], 0]
+            seen.append(rec)
+        n = rec[1]
+        rec[1] += 1
+        if n % every == 0 and n // every < per_table:
+            captured.append([t.clone() for t in a])
+        return plain(*a)
+    return capture
+
+
+def captured_path(name, fn):
+    """path_run(name, fn) with the phase-pair inputs captured (pair_capture);
+    holds the kernel bitwise against its plain version on each capture and
+    returns (fn's result, the record with the number of phase tables the
+    path ran and their shapes, the largest |kernel - plain|)."""
+    captured, seen = [], []
+    plain = mc_flight.phase_pair
+    mc_flight.phase_pair = pair_capture(captured, seen)
+    try:
+        out, rec = path_run(name, fn)
+    finally:
+        mc_flight.phase_pair = plain
+    err = 0.0
+    for i, a in enumerate(captured):
+        e, same = compare(phase_pair(*a), phase_pair_ref(*a))
+        err = max(err, e)
+        check(same, f'{name}: phase_pair kernel != plain on captured inputs '
+                    f'#{i} (tables {tuple(a[4].shape)}, {tuple(a[5].shape)}):'
+                    f' max |diff| {e}')
+    shapes = [[list(t.shape) for t in a[4:]] for a in captured]
+    rec.update(k1_bitwise_steps=len(captured), k1_tables=len(seen),
+               k1_shapes=shapes,
+               passes_at_cap=sum(p['steps'] >= p['cap']
+                                 for p in rec['passes']),
+               in_flight=sum(p['in_flight'] for p in rec['passes']))
+    log(f'# phase_pair bitwise equal on {len(captured)} captured steps of '
+        f'{name} ({len(seen)} tables, pt_p and pt_mu {shapes}); '
+        f'{rec["passes_at_cap"]} of {len(rec["passes"])} passes at their '
+        f'step cap, {rec["in_flight"]} lanes in flight at the end')
+    return out, rec, err
+
+
+def apps_phase(args, dev, pha650, report):
+    """Phase 10: the application layer on the card (see the module
+    docstring): (a) example case 05 on a file-backed scene, (b) the
+    bispectral LUT at its defaults and the reflectance curve of projects/05,
+    (c) spectral flux against the 1D solver.  ``pha650`` is the bench
+    scene's Mie table of 650 nm.  Returns the largest phase_pair |kernel -
+    plain| on the captured inputs."""
+    apps = report['apps'] = {}
+    err = 0.0
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+
+    # (a) LES nadir radiance: a SAM snapshot and a 16-g database, written
+    # here, read by cld_les / aer_les and abs_16g_from_txt (no h5py)
+    fdir = os.path.join(os.path.dirname(OUT_JSON) or '.', 'phase10')
+    os.makedirs(fdir, exist_ok=True)
+    t0 = time.perf_counter()
+    les = chip_smoke_files.write_les_snapshot(
+        os.path.join(fdir, 'les.nc'), seed=0, shape=APPS_LES_SHAPE)
+    db = chip_smoke_files.write_abs_16g_txt(os.path.join(fdir, 'abs_16g'),
+                                            [650.0], gen_abs_16g_h5)
+    files_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    atm = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
+                                     np.arange(3.0, 20.1, 1.0)]))
+    ab = abs_16g_from_txt(650.0, atm, fdir_k=db)
+    cld = cld_les(les, coarsen=chip_smoke_files.LES_COARSEN)
+    aer = aer_les(les, ssa=0.9, asy=0.7, coarsen=chip_smoke_files.LES_COARSEN,
+                  ext_scale=0.1)
+    load_s = time.perf_counter() - t0
+    cloud_layers = int(np.sum((cld.extinction > 0).any(axis=(0, 1))))
+    check(not ab.synthetic and ab.ng == 16,
+          'les: the AbsCoef is not database-backed')
+    check((cld.nx, cld.ny) == APPS_LES_SHAPE[:2] and cloud_layers >= 4,
+          f'les: cloud {cld.nx}x{cld.ny} with {cloud_layers} cloud layers')
+    res, rec, e = captured_path('phase 10 les', lambda run: solve(
+        atm=atm, abs_coef=ab, cld=cld, pha=pha650, aer_3ds=[aer],
+        surface=0.03, target='radiance', solar_zenith_angle=30.0,
+        solar_azimuth_angle=45.0, forward_trunc_deg=5.0,
+        photons=APPS_LES_PHOTONS, n_run=2, seed=args.seed + 40, device=dev))
+    err = max(err, e)
+    rad = np.asarray(res['rad'])
+    check(rad.shape == (cld.nx, cld.ny) and np.isfinite(rad).all()
+          and (rad >= 0).all(), f'les: rad {rad.shape} not finite >= 0')
+    check(res.n_photon_effective == 2 * APPS_LES_PHOTONS,
+          f'les: launched {res.n_photon_effective} photons')
+    rec.update(files_s=files_s, load_s=load_s, synthetic=ab.synthetic,
+               cloud_layers=cloud_layers,
+               cloud_fraction=float(cld.cloud_mask_2d.mean()),
+               domain_mean=against_ref(
+                   'LES domain-mean radiance', float(rad.mean()),
+                   APPS_LES_REF_RUNS, APPS_LES_REF_PHOTONS,
+                   2 * APPS_LES_PHOTONS, 0.01))
+    apps['les'] = rec
+
+    # (b) the bispectral LUT at its default grids and wavelengths, the
+    # retrieval of three interior nodes, the 31-node reflectance curve
+    atm1 = atm_atmmod(np.linspace(0, 20, 21))
+    lut, rec, e = captured_path('phase 10 lut', lambda run: (
+        gen_bispectral_lookup_table(atm1, photons=APPS_LUT_PHOTONS,
+                                    seed=args.seed + 41, device=dev)))
+    err = max(err, e)
+    check(rec['k1_tables'] == 2 and len(rec['passes']) == 2,
+          f'lut: {rec["k1_tables"]} phase tables in {len(rec["passes"])} '
+          f'passes, not one a wavelength')
+    names = ('mean', 'cot_lo_cer_lo', 'cot_lo_cer_hi', 'cot_hi_cer_lo',
+             'cot_hi_cer_hi')
+    for band, k in (('ref_vis', 0), ('ref_nir', 1)):
+        t = np.asarray(lut[band])
+        check(t.shape == (25, 11) and np.isfinite(t).all() and (t >= 0).all(),
+              f'lut: {band} {t.shape} not finite >= 0')
+        got = chip_smoke_files.lut_summary(t)
+        rec[band] = {n: against_ref(
+            f'LUT {band} {n}', got[i], [r[k][i] for r in APPS_LUT_REF_RUNS],
+            APPS_LUT_REF_PHOTONS, APPS_LUT_PHOTONS, 0.01)
+            for i, n in enumerate(names)}
+    ic, ie = (list(p) for p in APPS_LUT_PICKS)
+    cot_hat, cer_hat = retrieve_cot_cer(
+        lut, np.asarray(lut['ref_vis'])[ic, ie],
+        np.asarray(lut['ref_nir'])[ic, ie])
+    check(np.array_equal(cot_hat, lut['cot'][ic])
+          and np.array_equal(cer_hat, lut['cer'][ie]),
+          f'lut: retrieval of nodes {APPS_LUT_PICKS} gave COT {cot_hat}, '
+          f'CER {cer_hat}')
+    rec['retrieved'] = [[float(c) for c in cot_hat],
+                        [float(c) for c in cer_hat]]
+    apps['lut'] = rec
+
+    curve, rec, e = captured_path('phase 10 curve', lambda run: (
+        func_ref_vs_cot(atm1, photons=APPS_CURVE_PHOTONS, seed=args.seed + 42,
+                        device=dev)))
+    err = max(err, e)
+    ref = np.asarray(curve.ref)
+    rising = chip_smoke_files.curve_rises(curve.cot, ref)
+    check(ref.shape == (31,) and np.isfinite(ref).all() and rising,
+          f'curve: {ref.shape}, not finite or not rising from COT 1 in '
+          f'means of five nodes: {ref}')
+    rec.update(rising=rising, mean=against_ref(
+        'reflectance-curve mean', float(ref.mean()),
+        APPS_CURVE_REF_RUNS, APPS_CURVE_PHOTONS,
+        APPS_CURVE_PHOTONS, 0.01))
+    apps['curve'] = rec
+
+    # (c) spectral flux on a clear sky: MC against the 1D solver
+    wv = list(APPS_FLUX_WAVELENGTHS)
+    out, rec, e = captured_path('phase 10 spectral_flux', lambda run: (
+        spectral_flux(atm1, wv, abs_fn=abs_synthetic, surface=0.2,
+                      solar_zenith_angle=30.0, photons=APPS_FLUX_PHOTONS,
+                      n_run=1, seed=args.seed + 43, device=dev)))
+    err = max(err, e)
+    one_d = spec_flx(atm1, wavelengths=wv, solar_zenith_angle=30.0,
+                     surface_albedo=0.2, slit=None, n_streams=8,
+                     abs_fn=abs_synthetic)
+    rec['wavelengths'] = {}
+    for i, w in enumerate(wv):
+        dn = float(out['f_down'][i].reshape(-1, atm1.nz + 1)[:, 0].mean())
+        up = float(out['f_up'][i].reshape(-1, atm1.nz + 1)[:, -1].mean())
+        direct = out['f_down_direct'][i].reshape(-1, atm1.nz + 1)[:, -1]
+        toa_err = float(np.max(np.abs(direct / (out['toa'][i] * mu0) - 1)))
+        d_dn, d_up = dn / one_d['f_down'][i] - 1, up / one_d['f_up'][i] - 1
+        check(toa_err <= 1e-5 and abs(d_dn) <= 0.03 and abs(d_up) <= 0.06,
+              f'spectral_flux {w} nm: surface f_down {dn:.6g} against '
+              f'{one_d["f_down"][i]:.6g} ({d_dn:+.2%}, bound 3 %), TOA f_up '
+              f'{up:.6g} against {one_d["f_up"][i]:.6g} ({d_up:+.2%}, bound '
+              f'6 %), TOA down-direct off toa * mu0 by {toa_err}')
+        rec['wavelengths'][str(w)] = dict(
+            f_down_sfc=dn, f_down_sfc_1d=float(one_d['f_down'][i]),
+            rel_diff_f_down=d_dn, f_up_toa=up,
+            f_up_toa_1d=float(one_d['f_up'][i]), rel_diff_f_up=d_up,
+            toa_direct_max_rel_err=toa_err)
+    apps['spectral_flux'] = rec
+    log('# phase 10: ' + json.dumps({k: {kk: vv for kk, vv in v.items()
+                                         if kk != 'passes'}
+                                     for k, v in apps.items()}))
     return err
 
 

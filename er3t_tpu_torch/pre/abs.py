@@ -1,18 +1,26 @@
-"""Gas absorption: synthetic correlated-k coefficients per atmospheric layer
-(NumPy copy of ``er3t_tpu/pre/abs.py:30-211``: ``AbsCoef``, ``G16_WEIGHTS``
-and ``abs_synthetic``).  The reference's file-backed ``abs_16g`` and
-``abs_rep`` are not copied yet (ROADMAP A13).
+"""Gas absorption: correlated-k coefficients per atmospheric layer (NumPy
+copy of ``er3t_tpu/pre/abs.py:30-243``: ``AbsCoef``, ``G16_WEIGHTS``,
+``abs_synthetic``, and the file-backed ``abs_16g`` and ``abs_rep``).
+
+``abs_16g`` reads the 16-g database (:mod:`.abs_16g_db`) and ``abs_rep``
+the REPTRAN files (:mod:`.abs_rep_db`) where they exist; otherwise both
+fall back to ``abs_synthetic``, as the reference does, and the result says
+so (``synthetic=True``).  ``abs_synthetic`` generates a k-distribution
+from published gray cross-sections and band-mean gas absorption with a
+lognormal g-spread, at any wavelength in 300-2500 nm.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
+from .. import common
 from ..physics.solar import solar_irradiance
 
-__all__ = ['AbsCoef', 'abs_synthetic', 'G16_WEIGHTS']
+__all__ = ['AbsCoef', 'abs_16g', 'abs_synthetic', 'abs_rep', 'G16_WEIGHTS']
 
 
 # 16-point g quadrature weights of the reference database
@@ -184,3 +192,35 @@ def abs_synthetic(wavelength: float, atm, ng: int = 16) -> AbsCoef:
     return AbsCoef(wvl=float(wavelength), abso_coef=k, slit_func=slit,
                    solar=solar, weight=weight.copy(), synthetic=True)
 
+
+def abs_16g(wavelength: float, atm, fname_h5: str | None = None) -> AbsCoef:
+    """Correlated-k from the 16-g SSFR database, or synthetic fallback.
+
+    The database path (HDF5 layout ``/{gas}/pressure.{j}/temperature.{j}
+    [/wv.{j}]/{kg}.{wvl}``, abs_crk.py:482-628) is used when the file exists;
+    otherwise a synthetic spectrum is generated.
+    """
+    fname = fname_h5 or common.fname_abs_16g_h5
+    if fname and os.path.exists(fname):
+        from .abs_16g_db import abs_16g_from_h5
+        return abs_16g_from_h5(wavelength, atm, fname)
+    return abs_synthetic(wavelength, atm, ng=16)
+
+
+def abs_rep(wavelength_or_channel, atm, fname_cdf: str | None = None,
+            band: str = 'solar', resolution: str = 'coarse') -> AbsCoef:
+    """REPTRAN representative-wavelength absorption (abs_rep.py:20-372).
+
+    Requires the libRadtran REPTRAN netCDF database; when absent, falls back
+    to the synthetic generator for numeric wavelengths and raises for named
+    instrument channels.
+    """
+    if fname_cdf and os.path.exists(fname_cdf):
+        from .abs_rep_db import abs_rep_from_cdf
+        return abs_rep_from_cdf(wavelength_or_channel, atm, fname_cdf,
+                                band=band, resolution=resolution)
+    if isinstance(wavelength_or_channel, (int, float)):
+        return abs_synthetic(float(wavelength_or_channel), atm, ng=16)
+    raise FileNotFoundError(
+        'REPTRAN database not found; named-channel absorption requires '
+        'the reptran netCDF files (set fname_cdf).')

@@ -1,7 +1,9 @@
 """3D cloud-field construction (NumPy copy of ``er3t_tpu/pre/cld.py``:
-``cal_ext`` and ``Cloud3D`` :32-97, ``_regular_grid``, ``cld_gen_hom``,
-``cld_gen_hem``, ``_maps_to_3d`` and ``cld_gen_cop`` :178-323).  The
-reference's netCDF-backed ``cld_les`` and ``cld_sat`` are not copied yet
+``cal_ext`` and ``Cloud3D`` :32-97, the LES loader ``cld_les`` :100-176,
+``_regular_grid``, ``cld_gen_hom``, ``cld_gen_hem``, ``_maps_to_3d`` and
+``cld_gen_cop`` :178-323).  ``cld_les`` reads its SAM snapshot through
+:mod:`er3t_tpu_torch.util.ncio`, so a classic netCDF file needs no netCDF4
+or h5py.  The reference's satellite-object ``cld_sat`` is not copied yet
 (ROADMAP A13).  Every builder returns a :class:`Cloud3D` of (Nx, Ny, Nz)
 NumPy arrays.
 """
@@ -15,7 +17,7 @@ import numpy as np
 from ..physics.constants import RHO_WATER
 from ..util.grid import downscale_3d
 
-__all__ = ['Cloud3D', 'cld_gen_hom', 'cld_gen_hem', 'cld_gen_cop',
+__all__ = ['Cloud3D', 'cld_les', 'cld_gen_hom', 'cld_gen_hem', 'cld_gen_cop',
            'cal_ext']
 
 
@@ -85,6 +87,84 @@ class Cloud3D:
             dx=self.dx * fx, dy=self.dy * fy,
             altitude=alt, thickness=thick,
             extinction=ext, cer=cer, temperature=tmp)
+
+
+def cld_les(fname_nc: str, coarsen=(1, 1, 1), q_factor: float = 2.0,
+            index_t: int = 0) -> Cloud3D:
+    """Load an LES (SAM netCDF) snapshot and derive cloud optical properties.
+
+    Physics chain per the reference (cld_les.py:119-283): water-vapor mmr ->
+    vmr -> humid-air density -> liquid water content; extinction
+    0.75*Qe*LWC/(rho_w*CER); cloud-free top trimmed; (Nz,Ny,Nx) transposed to
+    (Nx,Ny,Nz); optional block coarsening.
+    """
+    from ..util.ncio import open_any, read_var
+
+    f = open_any(fname_nc)
+    try:
+        x = np.asarray(f.var('x')[0]) / 1000.0
+        y = np.asarray(f.var('y')[0]) / 1000.0
+        z0 = np.asarray(f.var('z')[0]) / 1000.0
+        qc = np.asarray(f.var('QC')[0][index_t, ...])       # g/kg
+        nz0 = z0.size
+        # trim cloud-free top, keep divisibility for coarsening
+        qc_z = qc.sum(axis=(1, 2))
+        idx_e = nz0
+        while idx_e > 1 and qc_z[idx_e - 1] < 1e-10:
+            idx_e -= 1
+        if coarsen[2] > 1:
+            c = coarsen[2]
+            cloud_top = idx_e
+            # round UP to the next block boundary (no-op when already on
+            # one), clamped to the grid; if the grid itself is not
+            # divisible, fall back to the highest boundary below it —
+            # valid only when that still covers the cloud
+            idx_e = min(c * ((idx_e + c - 1) // c), nz0)
+            if idx_e % c:
+                idx_e = c * (idx_e // c)
+                if idx_e < cloud_top:
+                    raise ValueError(
+                        f'LES z-grid has {nz0} levels, not coarsenable by '
+                        f'{c} without cutting cloudy layers (cloud top at '
+                        f'level {cloud_top}); choose a divisor of a '
+                        f'cloud-covering level count')
+        z = z0[:idx_e]
+        qc = qc[:idx_e]
+        p = np.asarray(f.var('p')[0])[:idx_e]
+        qv = np.asarray(f.var('QV')[0][index_t, :idx_e])
+        cer = np.asarray(f.var('REL')[0][index_t, :idx_e])
+        nc = np.asarray(f.var('NC')[0][index_t, :idx_e])
+        t3d = np.asarray(f.var('TABS')[0][index_t, :idx_e])
+    finally:
+        f.close()
+
+    # humid-air density [kg/m^3]
+    mmr = qv * 1e-3
+    q = mmr / (1.0 - mmr)
+    vmr = q / (q + 0.0180160 / 0.0289644)
+    rho = (p[:, None, None] * 100.0) * 0.0289644 / (8.31447 * t3d) \
+        * (1.0 - vmr * (1.0 - 0.0180160 / 0.0289644))
+
+    lwc = qc * 1e-3 * rho                       # kg/m^3
+    cloudy = (nc >= 1) & (cer > 0.0)
+    ext = np.zeros_like(t3d)
+    const0 = 0.75 * q_factor / (RHO_WATER * 1e-6)
+    ext[cloudy] = const0 / cer[cloudy] * lwc[cloudy]
+    cer = np.where(cloudy, cer, 0.0)
+
+    dz = np.diff(z)
+    dz = np.append(dz, dz[-1])
+
+    cld = Cloud3D(
+        x=np.asarray(x), y=np.asarray(y),
+        dx=float(abs(x[1] - x[0])), dy=float(abs(y[1] - y[0])),
+        altitude=np.asarray(z), thickness=dz,
+        extinction=np.transpose(ext),           # (Nz,Ny,Nx) -> (Nx,Ny,Nz)
+        cer=np.transpose(cer),
+        temperature=np.transpose(t3d))
+    if any(f != 1 for f in coarsen):
+        cld = cld.coarsen(coarsen)
+    return cld
 
 
 def _regular_grid(nx, ny, dx, dy):

@@ -1183,8 +1183,11 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     lane keeps its own state; later deviates are fresh draws).
     ``stats``: optional dict that receives ``host_read_s``, the wall time
     spent in the per-step read-back (it includes waiting for the device to
-    finish the step), and ``stage_steps``, the steps run at the full batch
-    and in each drain stage.  Flux tallies come back unpacked as (Nxf,
+    finish the step), ``stage_steps``, the steps run at the full batch
+    and in each drain stage, ``max_steps``, the step cap (reference
+    :1396-1399), and ``in_flight``, the lanes still alive when the loop
+    ended (non-zero only for a run stopped at its cap, whose photons in
+    flight tally no more).  Flux tallies come back unpacked as (Nxf,
     Nyf, Nz+1, 3, Ng) (Ng -> 1 with the in-step contraction) with the
     deterministic TOA down-direct entry added (reference :1483-1497);
     ``rad_plen`` is the (Nxr, Nyr, Ng) pathlength-weighted image with
@@ -1253,7 +1256,9 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         stage_steps.append(c.step - prev)
 
     if stats is not None:
-        stats.update(host_read_s=host_read_s, stage_steps=stage_steps)
+        in_flight = counts(c)[0]
+        stats.update(host_read_s=host_read_s, stage_steps=stage_steps,
+                     max_steps=max_steps, in_flight=in_flight)
     ng_r = 1 if kern.scalar_rad else st.ng
     if kern.radiance:
         flux = torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev)

@@ -19,6 +19,7 @@ import chip_smoke
 from er3t_tpu_torch import _build
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
+from er3t_tpu_torch.pre import pha
 from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.rtm import mc, mc_flight
@@ -35,6 +36,7 @@ PHASE7 = ('ipa', 'p3d', 'ipa_flux', 'camera', 'camera_air', 'cf_dtau',
           'split_wmax', 'rr_value', 'sort_coherent', 'production')
 PHASE8 = ('march_flux', 'march_rad', 'march_hr')
 PHASE9 = ('photon', 'decomp', 'flux', 'solve', 'process_group')
+PHASE10 = ('les', 'lut', 'curve', 'spectral_flux')
 
 
 def _small_scene(device):
@@ -120,8 +122,29 @@ def rehearsal(monkeypatch, tmp_path):
                         ('REF_RUN_MEANS', tuple(r[0] for r in wide)),
                         ('HR_REF_RUNS', tuple(r[0] for r in wide)),
                         ('OUT_JSON', str(tmp_path / 'chip_smoke.json')),
-                        ('build_bench_scene', _small_scene)):
+                        ('build_bench_scene', _small_scene),
+                        ('APPS_LES_SHAPE', (12, 12, 60)),
+                        ('APPS_LES_PHOTONS', 4_000),
+                        ('APPS_LUT_PHOTONS', 8_000),
+                        ('APPS_CURVE_PHOTONS', 8_000),
+                        ('APPS_FLUX_PHOTONS', 20_000),
+                        ('APPS_LES_REF_RUNS', tuple(r[0] for r in wide)),
+                        ('APPS_LUT_REF_RUNS', ((wide[0][:1] * 5,) * 2,
+                                               (wide[1][:1] * 5,) * 2)),
+                        ('APPS_CURVE_REF_RUNS', tuple(r[0] for r in wide))):
         monkeypatch.setattr(chip_smoke, name, value)
+    # one Mie table a wavelength for the whole rehearsal (phase 10 asks
+    # for 650 nm three times and 1600 nm once)
+    mie = {}
+    plain_mie = pha.pha_mie_wc
+
+    def mie_once(wavelength=650.0, **kw):
+        key = (wavelength, tuple(sorted(kw.items())))
+        if key not in mie:
+            mie[key] = plain_mie(wavelength, **kw)
+        return mie[key]
+    monkeypatch.setattr(pha, 'pha_mie_wc', mie_once)
+    monkeypatch.setattr(chip_smoke, 'pha_mie_wc', mie_once)
     monkeypatch.setattr(chip_smoke, 'QUASI_REF', _quasi_ref(
         chip_smoke.QUASI_NPIX, chip_smoke.QUASI_STEPS))
     monkeypatch.setattr(gather_probe, 'B', 1024)
@@ -195,9 +218,7 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert set(modes) == set(PHASE7)
     for name, rec in modes.items():
         assert rec['phase_pair_launches'] == rec['steps'] > 0, name
-        assert rec['photons'] == (12_000 if name in ('ipa', 'p3d', 'camera',
-                                                     'camera_air')
-                                  else 6_000), name
+        assert rec['photons'] == 6_000, name
         assert rec['photons_per_s'] > 0 and rec['passes'], name
         assert kernels[0][f'{name}_launches'] == rec['steps'], name
     for name in ('ipa', 'p3d', *chip_smoke.KNOBS):
@@ -254,9 +275,41 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert dist['decomp']['k1_bitwise_steps'] >= 2
     assert dist['flux']['toa_direct_max_rel_err'] <= 1e-5
     assert any(line.startswith('# phase 9 decomp: ') for line in lines)
+    apps = report['apps']
+    assert set(apps) == set(PHASE10)
+    for name, rec in apps.items():
+        assert rec['phase_pair_launches'] == rec['steps'] > 0, name
+        assert kernels[0][f'apps_{name}_launches'] == rec['steps'], name
+        assert all(n == 0 for k, n in rec['launches'].items()
+                   if k != 'phase_pair'), name
+        assert rec['photons_per_s'] > 0 and rec['k1_bitwise_steps'] >= 1
+        assert all(0 < p['steps'] <= p['cap'] for p in rec['passes'])
+        assert rec['in_flight'] == sum(p['in_flight'] for p in rec['passes'])
+        assert any(line.startswith(f'# phase 10 {name}: ') for line in lines)
+    les = apps['les']
+    assert les['photons'] == 8_000 and les['synthetic'] is False
+    assert les['cloud_layers'] >= 4 and les['k1_tables'] == 1
+    assert les['domain_mean']['value'] > 0
+    lut = apps['lut']
+    assert lut['photons'] == 16_000 and len(lut['passes']) == 2
+    assert lut['k1_tables'] == 2
+    for band in ('ref_vis', 'ref_nir'):
+        assert set(lut[band]) == {'mean', 'cot_lo_cer_lo', 'cot_lo_cer_hi',
+                                  'cot_hi_cer_lo', 'cot_hi_cer_hi'}
+    assert lut['retrieved'] == [[float(c) for c in np.concatenate(
+        [[0.0], np.logspace(-1, 2, 24)])[[8, 15, 21]]], [8.0, 14.0, 20.0]]
+    assert apps['curve']['photons'] == 8_000 and apps['curve']['rising']
+    flux = apps['spectral_flux']
+    assert flux['photons'] == 60_000 and flux['k1_tables'] == 3
+    assert set(flux['wavelengths']) == {'650.0', '762.0', '860.0'}
+    for rec in flux['wavelengths'].values():
+        assert abs(rec['rel_diff_f_down']) <= 0.03
+        assert abs(rec['rel_diff_f_up']) <= 0.06
+        assert rec['toa_direct_max_rel_err'] <= 1e-5
     k1_keys = {'flux_launches'} | {f'{m}_launches'
                                    for m in PHASE7 + PHASE8} \
-        | {f'dist_{m}_launches' for m in PHASE9}
+        | {f'dist_{m}_launches' for m in PHASE9} \
+        | {f'apps_{m}_launches' for m in PHASE10}
     for k in kernels:
         assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
                                  else set()), k['name']

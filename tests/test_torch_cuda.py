@@ -18,6 +18,7 @@ from er3t_tpu_torch._build import CudaError, launch
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
+from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather
 from er3t_tpu_torch.probes.gather_probe import device_ms
 from er3t_tpu_torch.rtm import mc, mc_flight
@@ -282,6 +283,38 @@ def test_mode_step_on_card_matches_cpu(cuda, mode):
                 float(getattr(ref, f).double().sum()), rel=1e-4), (k, f)
         c = ref
     assert float(c.rad.sum() + c.flux.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wvl', [650.0, 1600.0])
+def test_phase_pair_at_the_lut_tables(cuda, wvl):
+    """K1 on the phase tables of the bispectral LUT's IPA scene
+    (apps.lut at its default grids: the Mie rows of its 11 CER nodes, at
+    650 and at 1600 nm), bitwise against its plain version on 2^17 lanes
+    spread over every row and bin."""
+    from er3t_tpu_torch.apps.lut import _grid_cloud
+    atm = atm_atmmod(np.linspace(0, 20, 21))
+    cld = _grid_cloud(np.concatenate([[0.0], np.logspace(-1, 2, 24)]),
+                      np.arange(4.0, 25.1, 2.0))
+    scene, _ = build_scene(atm, abs_synthetic(wvl, atm), cld=cld,
+                           pha=pha_mie_wc(wvl), surface=0.03,
+                           solar_zenith_angle=30.0, ipa=True, device=cuda)
+    npf = scene.pt_mu.shape[0]
+    assert scene.pt_p.shape[0] == 2 * npf and npf >= 12
+    rng = np.random.default_rng(int(wvl))
+    b = 1 << 17
+    apf = rng.integers(0, npf, b).astype(np.int32)
+    row_e = (apf + np.where(rng.integers(0, 2, b) > 0, npf, 0)).astype(
+        np.int32)
+    lanes = [torch.from_numpy(x).to(cuda) for x in (
+        apf, row_e, rng.uniform(-1, 1, b).astype(np.float32),
+        rng.uniform(1e-7, 1 - 1e-7, b).astype(np.float32))]
+    before = phase_pair.launches
+    pe, mn = phase_pair(*lanes, scene.pt_p, scene.pt_mu)
+    ref_pe, ref_mn = phase_pair_ref(*lanes, scene.pt_p, scene.pt_mu)
+    torch.cuda.synchronize()
+    assert phase_pair.launches == before + 1
+    assert torch.equal(pe, ref_pe) and torch.equal(mn, ref_mn)
 
 
 @pytest.mark.cuda

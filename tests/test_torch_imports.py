@@ -9,6 +9,7 @@ import sys
 
 import pytest
 
+from er3t_tpu_torch.apps import lut, spectral
 from er3t_tpu_torch.dist import mesh
 from er3t_tpu_torch.rtm import mc, mc_flight, quasi, scene, solver
 
@@ -32,7 +33,16 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.probes', 'er3t_tpu_torch.probes.gather',
                 'er3t_tpu_torch.probes.gather_probe', 'er3t_tpu_torch.dist',
                 'er3t_tpu_torch.dist.mesh', 'er3t_tpu_torch.dist.photon',
-                'er3t_tpu_torch.dist.decomp', 'chip_smoke')
+                'er3t_tpu_torch.dist.decomp', 'er3t_tpu_torch.common',
+                'er3t_tpu_torch.util.ncio', 'er3t_tpu_torch.util.logger',
+                'er3t_tpu_torch.pre.pmom', 'er3t_tpu_torch.pre.abs_16g_db',
+                'er3t_tpu_torch.pre.abs_rep_db', 'er3t_tpu_torch.pre.abs_gen',
+                'er3t_tpu_torch.pre.abs_oco', 'er3t_tpu_torch.pre.abs_rrtmg',
+                'er3t_tpu_torch.physics.twostream',
+                'er3t_tpu_torch.physics.cloud_optics', 'er3t_tpu_torch.apps',
+                'er3t_tpu_torch.apps.cldpos', 'er3t_tpu_torch.apps.lut',
+                'er3t_tpu_torch.apps.spectral', 'chip_smoke_files',
+                'chip_smoke')
 
 
 def _python(code, **env):
@@ -59,10 +69,19 @@ def test_port_and_chip_smoke_import_no_jax():
 @pytest.mark.parametrize('fn', [scene.build_scene, solver.solve,
                                 mc_flight.run_transport_flight,
                                 mc.run_transport, mc.transport,
-                                quasi.quasi_radiance, mesh.make_mesh],
+                                quasi.quasi_radiance, mesh.make_mesh,
+                                lut.gen_bispectral_lookup_table,
+                                lut.func_ref_vs_cot,
+                                lut.func_ref_vs_cot_multi_pixel,
+                                spectral.spectral_flux,
+                                spectral.spectral_radiance],
                          ids=['build_scene', 'solve', 'run_transport_flight',
                               'run_transport', 'transport',
-                              'quasi_radiance', 'make_mesh'])
+                              'quasi_radiance', 'make_mesh',
+                              'gen_bispectral_lookup_table',
+                              'func_ref_vs_cot',
+                              'func_ref_vs_cot_multi_pixel', 'spectral_flux',
+                              'spectral_radiance'])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters['device'].default == 'cuda'
 
