@@ -123,6 +123,23 @@ Phases (any failure raises and the exit code is non-zero):
    surface 0.2: TOA down-direct = toa * mu0, the surface f_down within 3 %
    and the TOA f_up within 6 % of spec_flx(..., n_streams=8) (the 1D
    solver is deterministic);
+11. the satellite layer, projects/03's AHI-to-flux pipeline at its
+   defaults: a Himawari AHI CLP L2 granule (the JAXA P-Tree full disk at
+   0.05 deg, 2401 x 2401, classic netCDF; chip_smoke_files, seed 0) read
+   by sat.ahi.ahi_l2 over 120-122 E, 15-17 N and gridded to 48 x 48,
+   cld_sat (0.5 km columns, tops 2 km, 1 km thick, 0.5 km layers): the
+   gridded COT's sum and cloud fraction and the extinction's sum equal the
+   JAX package's on the same file exactly (SAT_EXACT); then solve(target=
+   'flux', flux_per_column=True, 1e6 photons, one run) at 532 nm for the
+   3D and the IPA solver at solve's card defaults, each with every launch
+   count set to 0 just before it, phase_pair launched once per flight
+   step and held bitwise against its plain version on inputs captured
+   from the path's steps: TOA down-direct = toa * mu0 in every column, the
+   domain means of the surface f_down and the TOA f_up and the mean f_down
+   along the flight track at the level nearest 5 km against
+   SAT_REF_RUNS; the wall of the files apart from the solves, and each
+   solve's wall, steps, passes at the step cap, lanes in flight and
+   photons/s printed;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -149,8 +166,8 @@ over 3.35 TB/s and its float operations over 67 TFLOP/s.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
 build/chip_smoke.json (phase 8 under "march" and "quasi", phase 9 under
-"dist", phase 10 under "apps"; phase 10's input files go to
-build/phase10/).  With --profile, 20 radiance steps and 20 flux steps
+"dist", phase 10 under "apps", phase 11 under "sat"; the input files of
+phases 10 and 11 go to build/phase10/ and build/phase11/).  With --profile, 20 radiance steps and 20 flux steps
 are profiled (keys "profile" and "profile_flux").
 """
 
@@ -180,7 +197,7 @@ from er3t_tpu_torch.pre.abs_16g_db import abs_16g_from_txt
 from er3t_tpu_torch.pre.abs_gen import gen_abs_16g_h5
 from er3t_tpu_torch.pre.aer import aer_les
 from er3t_tpu_torch.pre.atm import atm_atmmod
-from er3t_tpu_torch.pre.cld import cld_gen_hem, cld_les
+from er3t_tpu_torch.pre.cld import cld_gen_hem, cld_les, cld_sat
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
@@ -193,6 +210,7 @@ from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
 from er3t_tpu_torch.rtm.quasi import quasi_radiance
 from er3t_tpu_torch.rtm.scene import build_scene
 from er3t_tpu_torch.rtm.solver import solve
+from er3t_tpu_torch.sat.ahi import ahi_l2
 
 # Domain-mean radiance [W/m^2/nm/sr] of the bench scene under the production
 # config, computed by the JAX package (er3t_tpu 0.1.0, JAX 0.9.0) on the CPU
@@ -576,6 +594,59 @@ APPS_CURVE_REF_RUNS = (0.32411842098478577, 0.3378288177822685,
                        0.32921166655214573, 0.3316645079779635)
 APPS_CURVE_PHOTONS = 500_000
 
+# Phase 11, projects/03's pipeline on the granule of chip_smoke_files
+# (seed 0): the gridded COT's sum and cloud fraction and cld_sat's
+# extinction sum, exact; then per seed and solver, 1e6 photons at the
+# card's batch (2^17, so that the step cap is the card's), the domain means
+# of the surface f_down and the TOA f_up and the track mean of f_down at
+# the level nearest 5 km, the JAX package on the CPU (run here as four
+# processes, one a seed, each writing its own copy of the granule):
+SAT_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - <<'EOF'     # from the repository root
+import os
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np, chip_smoke_files as F
+from er3t_tpu.pre.abs import abs_synthetic
+from er3t_tpu.pre.atm import atm_atmmod
+from er3t_tpu.pre.cld import cld_sat
+from er3t_tpu.pre.pha import pha_mie_wc
+from er3t_tpu.rtm.solver import solve
+from er3t_tpu.sat.ahi import ahi_l2
+os.makedirs('build/phase11_ref', exist_ok=True)
+fn = F.write_ahi_clp('build/phase11_ref/ahi_clp.nc', seed=0)
+obj = ahi_l2([fn], extent=F.AHI_EXTENT, nx=F.AHI_NX, ny=F.AHI_NX)
+cot = obj.data['cot_2d']['data']
+cer = np.where(cot > 0, obj.data['cer_2d']['data'], 0.0)
+cld = cld_sat(cot_2d=cot, cer_2d=cer, dx=0.5, dy=0.5, cth=2.0, cgt=1.0, dz=0.5)
+print(repr(float(cot.sum())), repr(float((cot > 0).mean())),
+      repr(float(cld.extinction.sum())))
+atm = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
+                                 np.arange(3.0, 20.1, 1.0)]))
+ab, pha = abs_synthetic(532.0, atm), pha_mie_wc(532.0)
+iz = int(np.argmin(np.abs(atm.lev.altitude - 5.0)))
+fx, fy = F.flight_track(F.AHI_NX)
+for seed in range(4):
+    for mode in ('3d', 'ipa'):
+        res = solve(atm=atm, abs_coef=ab, cld=cld, pha=pha, surface=0.06,
+                    target='flux', solver=mode, flux_per_column=True,
+                    solar_zenith_angle=25.0, solar_azimuth_angle=45.0,
+                    photons=1e6, n_run=1, seed=seed, batch=1 << 17)
+        print(seed, mode, float(res['f_down'][..., 0].mean()),
+              float(res['f_up'][..., -1].mean()),
+              float(res['f_down'][fx, fy, iz].mean()))
+EOF"""
+SAT_EXACT = (3513.659921463579, 0.2578125, 7.027319842927158)
+SAT_REF_RUNS = {   # per seed: (surface f_down, TOA f_up, track f_down 5 km)
+    '3d': ((1.5016597509384155, 0.2620587944984436, 1.6480093002319336),
+           (1.500654697418213, 0.2630981206893921, 1.640225887298584),
+           (1.5014007091522217, 0.2622109353542328, 1.6695709228515625),
+           (1.501814365386963, 0.26211029291152954, 1.6302685737609863)),
+    'ipa': ((1.4956820011138916, 0.26786285638809204, 1.6484405994415283),
+            (1.495429515838623, 0.2680395841598511, 1.638514757156372),
+            (1.4955613613128662, 0.2679417133331299, 1.634265422821045),
+            (1.4961552619934082, 0.2674108147621155, 1.635565996170044))}
+SAT_REF_PHOTONS = 1_000_000
+
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
 GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
@@ -618,6 +689,10 @@ APPS_FLUX_PHOTONS = 1_000_000    # phase 10 (c): per wavelength
 APPS_FLUX_WAVELENGTHS = (650.0, 762.0, 860.0)
 APPS_LES_SHAPE = chip_smoke_files.LES_SHAPE
 APPS_LUT_PICKS = ((8, 15, 21), (2, 5, 8))   # interior (COT, CER) nodes
+SAT_PHOTONS = 1_000_000          # phase 11: per solve, one run a solver
+SAT_NX = chip_smoke_files.AHI_NX   # phase 11: the grid of the AHI extent
+SAT_WAVELENGTH = 532.0           # phase 11: projects/03's defaults
+SAT_SZA, SAT_SAA, SAT_ALT_KM = 25.0, 45.0, 5.0
 AIR_CAMERA = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
 # phase 7 (c): split_wmax 0.5 (the reference's tests' value): the
 # production config's weights stay at or below 1, so a window of 2 would
@@ -1097,6 +1172,9 @@ def run(args, dev):
     max_err = max(max_err, apps_phase(
         args, dev, scene_kw.get('pha') or pha_mie_wc(650.0), report))
 
+    # ---- 11. the satellite layer ----
+    max_err = max(max_err, sat_phase(args, dev, report))
+
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1152,6 +1230,9 @@ def run(args, dev):
         pp_entry[f'dist_{name}_launches'] = rec['phase_pair_launches']
     for name, rec in report['apps'].items():
         pp_entry[f'apps_{name}_launches'] = rec['phase_pair_launches']
+    for name in ('3d', 'ipa'):
+        pp_entry[f'sat_{name}_launches'] = \
+            report['sat'][name]['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name])
@@ -2012,6 +2093,86 @@ def apps_phase(args, dev, pha650, report):
     log('# phase 10: ' + json.dumps({k: {kk: vv for kk, vv in v.items()
                                          if kk != 'passes'}
                                      for k, v in apps.items()}))
+    return err
+
+
+def sat_scene(fname, nx):
+    """projects/03's scene from an AHI CLP granule (main_pre, main_sim):
+    ahi_l2 over its extent gridded to nx x nx, cld_sat, the atmosphere,
+    gases and Mie table at SAT_WAVELENGTH.  Returns (atm, ab, cld, pha, the
+    gridded COT)."""
+    obj = ahi_l2([fname], extent=chip_smoke_files.AHI_EXTENT, nx=nx, ny=nx)
+    cot = obj.data['cot_2d']['data']
+    cer = np.where(cot > 0, obj.data['cer_2d']['data'], 0.0)
+    cld = cld_sat(cot_2d=cot, cer_2d=cer, dx=0.5, dy=0.5, cth=2.0, cgt=1.0,
+                  dz=0.5)
+    atm = atm_atmmod(np.concatenate([np.arange(0, 3.0, 0.5),
+                                     np.arange(3.0, 20.1, 1.0)]))
+    return (atm, abs_synthetic(SAT_WAVELENGTH, atm), cld,
+            pha_mie_wc(SAT_WAVELENGTH), cot)
+
+
+def sat_phase(args, dev, report):
+    """Phase 11: projects/03's AHI-to-flux pipeline on the card (see the
+    module docstring).  Returns the largest phase_pair |kernel - plain| on
+    the captured inputs."""
+    sat = report['sat'] = {}
+    fdir = os.path.join(os.path.dirname(OUT_JSON) or '.', 'phase11')
+    os.makedirs(fdir, exist_ok=True)
+    t0 = time.perf_counter()
+    fname = chip_smoke_files.write_ahi_clp(os.path.join(fdir, 'ahi_clp.nc'),
+                                           seed=0)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    atm, ab, cld, pha, cot = sat_scene(fname, SAT_NX)
+    read_s = time.perf_counter() - t0
+    exact = (float(cot.sum()), float((cot > 0).mean()),
+             float(cld.extinction.sum()))
+    check(exact == SAT_EXACT, f'sat: gridded COT sum, cloud fraction and '
+                              f'extinction sum {exact} != the JAX '
+                              f'package\'s {SAT_EXACT}')
+    sat.update(file_mb=os.path.getsize(fname) / 1e6, write_s=write_s,
+               read_s=read_s, grid=list(cot.shape), exact=exact)
+    mu0 = float(np.cos(np.deg2rad(SAT_SZA)))
+    iz = int(np.argmin(np.abs(atm.lev.altitude - SAT_ALT_KM)))
+    fx, fy = chip_smoke_files.flight_track(SAT_NX)
+    err = 0.0
+    for mode in ('3d', 'ipa'):
+        res, rec, e = captured_path(f'phase 11 {mode}', lambda run: solve(
+            atm=atm, abs_coef=ab, cld=cld, pha=pha, surface=0.06,
+            target='flux', solver=mode, flux_per_column=True,
+            solar_zenith_angle=SAT_SZA, solar_azimuth_angle=SAT_SAA,
+            photons=SAT_PHOTONS, n_run=1, seed=args.seed + 7, device=dev))
+        err = max(err, e)
+        f_dn, f_up = np.asarray(res['f_down']), np.asarray(res['f_up'])
+        shape = (cld.nx, cld.ny, atm.nz + 1)
+        check(f_dn.shape == f_up.shape == shape and np.isfinite(f_dn).all()
+              and np.isfinite(f_up).all() and (f_dn >= 0).all()
+              and (f_up >= 0).all(),
+              f'sat {mode}: f_down {f_dn.shape}, f_up {f_up.shape} not '
+              f'finite >= 0 of {shape}')
+        check(res.n_photon_effective == SAT_PHOTONS,
+              f'sat {mode}: launched {res.n_photon_effective} photons')
+        toa_err = float(np.max(np.abs(
+            np.asarray(res['f_down_direct'])[..., -1] / (res.toa * mu0) - 1)))
+        check(toa_err <= 1e-5, f'sat {mode}: TOA down-direct off toa * mu0 '
+                               f'by {toa_err}')
+        z = atm.lev.altitude[iz]
+        rec.update(toa_direct_max_rel_err=toa_err, track_level_km=float(z))
+        means = {'f_down_sfc': ('domain-mean surface f_down',
+                                f_dn[..., 0].mean()),
+                 'f_up_toa': ('domain-mean TOA f_up', f_up[..., -1].mean()),
+                 'f_down_track': (f'track-mean f_down at {z:g} km',
+                                  f_dn[fx, fy, iz].mean())}
+        for refs, (key, (what, value)) in zip(zip(*SAT_REF_RUNS[mode]),
+                                              means.items()):
+            rec[key] = against_ref(f'sat {mode} {what}', float(value), refs,
+                                   SAT_REF_PHOTONS, SAT_PHOTONS, 0.01)
+        sat[mode] = rec
+    log('# phase 11: ' + json.dumps({k: ({kk: vv for kk, vv in v.items()
+                                          if kk != 'passes'}
+                                         if isinstance(v, dict) else v)
+                                     for k, v in sat.items()}))
     return err
 
 

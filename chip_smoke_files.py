@@ -1,4 +1,5 @@
-"""NumPy writers of the input files that phase 10 of ``chip_smoke.py`` reads.
+"""NumPy writers of the input files that phases 10 and 11 of ``chip_smoke.py``
+read, and the flight track of phase 11.
 
 Its JAX reference commands read the same files, so they import this module
 (NumPy and SciPy only; neither ``torch`` nor ``jax``) and not
@@ -12,7 +13,13 @@ Its JAX reference commands read the same files, so they import this module
   layout of ``abs_16g_from_txt``, made by a generator with the signature of
   ``gen_abs_16g_h5`` (either package's) with no ``h5py``: each dataset the
   generator writes becomes a text table, every float64 written so that it
-  reads back bit for bit.
+  reads back bit for bit;
+* :func:`write_ahi_clp` — a Himawari AHI CLP L2 granule made from a seed,
+  in classic netCDF, in the JAXA P-Tree full-disk layout that
+  ``sat.ahi.ahi_l2`` reads (1-D ``longitude``/``latitude``, packed
+  ``CLOT``, ``CLER_23``, ``CLTH``);
+* :func:`flight_track` — the aircraft track of
+  ``projects/03_spns_flux_sim.py:82-87``.
 """
 
 import os
@@ -31,6 +38,22 @@ LES_COARSEN = (1, 1, 10)         # 0.5 km layers, on the bench atmosphere's
 # default 25 COT x 11 CER grid, COT <= 2.7 or above, CER <= 14 um or above
 LUT_QUADRANTS = (((0, 13), (0, 6)), ((0, 13), (6, 11)),
                  ((13, 25), (0, 6)), ((13, 25), (6, 11)))
+# the AHI CLP full disk at 0.05 deg: 80-200 E, 60 N-60 S (north first),
+# Himawari-8/9 over 140.7 E; no retrieval beyond 70 deg of central angle
+AHI_LON = (80.0, 200.0)
+AHI_LAT = (60.0, -60.0)
+AHI_STEPS_PER_DEG = 20
+AHI_SUBSAT_LON = 140.7
+AHI_EDGE_DEG = 70.0
+AHI_CLOUD_FRAC = 0.3
+# name: (scale_factor, add_offset, units) of the int16 packing (CF:
+# raw * scale + offset); -32768 is the fill
+AHI_PACKING = {'CLOT': (0.01, 0.0, '1'), 'CLER_23': (0.01, 0.0, 'um'),
+               'CLTH': (0.001, 10.0, 'km')}
+AHI_FILL = -32768
+# projects/03_spns_flux_sim.py's defaults: the extent read and its grid
+AHI_EXTENT = (120.0, 122.0, 15.0, 17.0)
+AHI_NX = 48
 
 
 def curve_rises(cot, ref, group=5):
@@ -159,3 +182,68 @@ def write_abs_16g_txt(fdir, wavelengths, gen):
             sys.modules['h5py'] = saved
     return fdir
 
+
+
+def write_ahi_clp(fname, seed=0, lon=AHI_LON, lat=AHI_LAT):
+    """Write a broken cumulus field as one AHI CLP L2 granule.
+
+    The axes are 1-D and float32, ``k / AHI_STEPS_PER_DEG`` degrees from
+    the first value rounded once, so whole degrees (an extent's edges) are
+    exact.  A Gaussian-smoothed noise field (0.1 deg length scale) from
+    ``seed`` is cut at its ``1 - AHI_CLOUD_FRAC`` quantile; with the cut's
+    excess e in (0, 1] a cloudy pixel has COT 2 + 58 e^1.5, CER 8 + 7 e um
+    and its top at 1 + 2 sqrt(e) km; clear pixels are 0, 0 and 0.  Pixels
+    more than ``AHI_EDGE_DEG`` of central angle from the sub-satellite
+    point hold the fill.  Each variable is int16, CF-packed as
+    ``AHI_PACKING`` says.  Returns ``fname``.
+    """
+    n_lon = int(round(abs(lon[1] - lon[0]) * AHI_STEPS_PER_DEG)) + 1
+    n_lat = int(round(abs(lat[1] - lat[0]) * AHI_STEPS_PER_DEG)) + 1
+    lon1 = (lon[0] + np.sign(lon[1] - lon[0]) * np.arange(n_lon)
+            / AHI_STEPS_PER_DEG).astype(np.float32)
+    lat1 = (lat[0] + np.sign(lat[1] - lat[0]) * np.arange(n_lat)
+            / AHI_STEPS_PER_DEG).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    ky = np.fft.fftfreq(n_lat, d=1.0 / AHI_STEPS_PER_DEG)[:, None]
+    kx = np.fft.fftfreq(n_lon, d=1.0 / AHI_STEPS_PER_DEG)[None, :]
+    field = np.real(np.fft.ifft2(np.fft.fft2(rng.normal(size=(n_lat, n_lon)))
+                                 * np.exp(-2.0 * (np.pi * 0.1) ** 2
+                                          * (kx ** 2 + ky ** 2))))
+    thr = np.quantile(field, 1.0 - AHI_CLOUD_FRAC)
+    cloudy = field > thr
+    e = np.where(cloudy, (field - thr) / (field.max() - thr), 0.0)
+    values = {'CLOT': np.where(cloudy, 2.0 + 58.0 * e ** 1.5, 0.0),
+              'CLER_23': np.where(cloudy, 8.0 + 7.0 * e, 0.0),
+              'CLTH': np.where(cloudy, 1.0 + 2.0 * np.sqrt(e), 0.0)}
+    lon2, lat2 = np.meshgrid(np.deg2rad(lon1.astype(np.float64)
+                                        - AHI_SUBSAT_LON),
+                             np.deg2rad(lat1.astype(np.float64)))
+    off_disk = np.cos(lat2) * np.cos(lon2) < np.cos(np.deg2rad(AHI_EDGE_DEG))
+
+    from scipy.io import netcdf_file
+    with netcdf_file(fname, 'w') as f:
+        f.createDimension('latitude', n_lat)
+        f.createDimension('longitude', n_lon)
+        for name, data in (('latitude', lat1), ('longitude', lon1)):
+            v = f.createVariable(name, 'f', (name,))
+            v[:] = data
+            v.units = 'degrees_north' if name == 'latitude' else 'degrees_east'
+        for name, (scale, offset, units) in AHI_PACKING.items():
+            raw = np.round((values[name] - offset) / scale)
+            raw = np.where(off_disk, AHI_FILL, raw).astype(np.int16)
+            v = f.createVariable(name, 'h', ('latitude', 'longitude'))
+            v[:] = raw
+            v.scale_factor = np.float32(scale)
+            v.add_offset = np.float32(offset)
+            v._FillValue = np.int16(AHI_FILL)
+            v.units = units
+    return fname
+
+
+def flight_track(nx, n_pts=200):
+    """Parametric diagonal-with-wiggle track in grid coordinates (a copy
+    of ``projects/03_spns_flux_sim.py:82-87``)."""
+    t = np.linspace(0.0, 1.0, n_pts)
+    fx = np.clip((0.1 + 0.8 * t) * nx, 0, nx - 1)
+    fy = np.clip((0.2 + 0.6 * t + 0.08 * np.sin(6.28 * 3 * t)) * nx, 0, nx - 1)
+    return fx.astype(int), fy.astype(int)

@@ -1,7 +1,8 @@
-"""Rayleigh scattering: Bodhaine (1999) optical depth and the analytic
-scattering-cosine sampler (NumPy copy of ``er3t_tpu/physics/rayleigh.py``:
-``gravity_surface`` :19-22, ``bodhaine_factor`` :35-45, ``rayleigh_od``
-:48-75, ``sample_rayleigh_mu`` :83-99 without its ``jax.numpy`` dispatch).
+"""Rayleigh scattering: Bodhaine (1999) optical depth and gravity, the
+phase function and its analytic scattering-cosine sampler (NumPy copy of ``er3t_tpu/physics/rayleigh.py``:
+``gravity_surface`` :19-22, ``gravity_at_alt`` :25-32, ``bodhaine_factor``
+:35-45, ``rayleigh_od`` :48-75, ``rayleigh_phase`` :78-80,
+``sample_rayleigh_mu`` :83-99 without its ``jax.numpy`` dispatch).
 """
 
 from __future__ import annotations
@@ -10,14 +11,24 @@ import numpy as np
 
 from . import constants as c
 
-__all__ = ['gravity_surface', 'bodhaine_factor', 'rayleigh_od',
-           'sample_rayleigh_mu']
+__all__ = ['gravity_surface', 'gravity_at_alt', 'bodhaine_factor',
+           'rayleigh_od', 'rayleigh_phase', 'sample_rayleigh_mu']
 
 
 def gravity_surface(lat_deg):
     """Surface gravity [m/s^2] vs latitude (Bodhaine et al. 1999, eq. 11)."""
     phi = np.deg2rad(lat_deg)
     return 9.806160 * (1.0 - 0.0026373 * np.cos(2 * phi) + 0.0000059 * np.cos(2 * phi) ** 2)
+
+
+def gravity_at_alt(g0, lat_deg, z_m):
+    """Gravity [m/s^2] at altitude z [m] (Bodhaine et al. 1999, eq. 10)."""
+    phi = np.deg2rad(lat_deg)
+    g_cgs = (g0 * 100.0
+             - (3.085462e-4 + 2.27e-7 * np.cos(2 * phi)) * z_m
+             + (7.254e-11 + 1.0e-13 * np.cos(2 * phi)) * z_m ** 2
+             - (1.517e-17 + 6.0e-20 * np.cos(2 * phi)) * z_m ** 3)
+    return g_cgs / 100.0
 
 
 def bodhaine_factor(wvl_um):
@@ -61,6 +72,11 @@ def rayleigh_od(wvl_nm, p_lev_hpa, lat_deg=45.0, co2_vmr=330.0e-6):
     # and the classical 0.00210966/1013.25 normalization reproduces it:
     const = dp * 1000.0 * c.N_A / (g0 * ma) * 1e-28
     return const * bodhaine_factor(wvl_um)
+
+
+def rayleigh_phase(mu):
+    """Rayleigh phase function P(mu), normalized to integrate to 2 over mu."""
+    return 0.75 * (1.0 + mu * mu)
 
 
 def sample_rayleigh_mu(u):

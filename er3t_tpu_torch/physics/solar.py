@@ -1,6 +1,6 @@
-"""Sun-Earth distance factor and TOA solar spectrum (NumPy copy of
-``er3t_tpu/physics/solar.py``: ``sol_fac`` :22-30, the bundled spectrum and
-``solar_irradiance`` :70-91).
+"""Sun-Earth distance factor, solar position and TOA solar spectrum (NumPy
+copy of ``er3t_tpu/physics/solar.py``: ``sol_fac`` :22-30, ``solar_angles``
+:33-67, the bundled spectrum and ``solar_irradiance`` :70-91).
 """
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import datetime
 
 import numpy as np
 
-__all__ = ['sol_fac', 'solar_irradiance']
+__all__ = ['sol_fac', 'solar_angles', 'solar_irradiance']
 
 
 def sol_fac(dtime: datetime.datetime | None) -> float:
@@ -21,6 +21,43 @@ def sol_fac(dtime: datetime.datetime | None) -> float:
     perh = 4.0
     rsun = 1.0 - eps * np.cos(0.017202124161707175 * (doy - perh))
     return float(1.0 / rsun ** 2)
+
+
+def solar_angles(dtime_utc: datetime.datetime, lon_deg, lat_deg):
+    """Solar zenith and azimuth [deg] (azimuth clockwise from north).
+
+    Low-precision solar position (Meeus, Astronomical Algorithms ch. 25),
+    accurate to ~0.01 deg over 1950-2050 — sufficient for RT geometry.
+    """
+    lon = np.asarray(lon_deg, dtype=np.float64)
+    lat = np.asarray(lat_deg, dtype=np.float64)
+
+    if dtime_utc.tzinfo is not None:
+        dtime_utc = dtime_utc.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+    epoch = datetime.datetime(2000, 1, 1, 12)
+    d = (dtime_utc - epoch).total_seconds() / 86400.0  # days since J2000.0
+
+    g = np.deg2rad((357.529 + 0.98560028 * d) % 360.0)   # mean anomaly
+    q = (280.459 + 0.98564736 * d) % 360.0               # mean longitude
+    lam = np.deg2rad(q + 1.915 * np.sin(g) + 0.020 * np.sin(2 * g))  # ecliptic lon
+    e = np.deg2rad(23.439 - 0.00000036 * d)              # obliquity
+
+    ra = np.arctan2(np.cos(e) * np.sin(lam), np.cos(lam))          # right ascension
+    dec = np.arcsin(np.sin(e) * np.sin(lam))                       # declination
+
+    gmst = (18.697374558 + 24.06570982441908 * d) % 24.0           # hours
+    lst = gmst * 15.0 + lon                                        # deg
+    ha = np.deg2rad((lst - np.rad2deg(ra) + 540.0) % 360.0 - 180.0)  # hour angle
+
+    phi = np.deg2rad(lat)
+    sin_alt = np.sin(phi) * np.sin(dec) + np.cos(phi) * np.cos(dec) * np.cos(ha)
+    alt = np.arcsin(np.clip(sin_alt, -1.0, 1.0))
+    az = np.arctan2(-np.sin(ha),
+                    np.tan(dec) * np.cos(phi) - np.sin(phi) * np.cos(ha))
+
+    sza = 90.0 - np.rad2deg(alt)
+    saa = np.rad2deg(az) % 360.0
+    return sza, saa
 
 
 # ----------------------------------------------------------------------------

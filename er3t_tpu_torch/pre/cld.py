@@ -1,11 +1,12 @@
 """3D cloud-field construction (NumPy copy of ``er3t_tpu/pre/cld.py``:
 ``cal_ext`` and ``Cloud3D`` :32-97, the LES loader ``cld_les`` :100-176,
 ``_regular_grid``, ``cld_gen_hom``, ``cld_gen_hem``, ``_maps_to_3d`` and
-``cld_gen_cop`` :178-323).  ``cld_les`` reads its SAM snapshot through
-:mod:`er3t_tpu_torch.util.ncio`, so a classic netCDF file needs no netCDF4
-or h5py.  The reference's satellite-object ``cld_sat`` is not copied yet
-(ROADMAP A13).  Every builder returns a :class:`Cloud3D` of (Nx, Ny, Nz)
-NumPy arrays.
+``cld_gen_cop`` :178-323, ``cld_sat`` :326-352).  ``cld_les`` reads its
+SAM snapshot through :mod:`er3t_tpu_torch.util.ncio`, so a classic netCDF
+file needs no netCDF4 or h5py.  ``cld_sat`` takes any reader object with
+the ``data[key]['data']`` contract, this package's ``sat`` readers or the
+reference's.  Every cloud function returns a :class:`Cloud3D` of (Nx, Ny,
+Nz) NumPy arrays.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..physics.constants import RHO_WATER
 from ..util.grid import downscale_3d
 
 __all__ = ['Cloud3D', 'cld_les', 'cld_gen_hom', 'cld_gen_hem', 'cld_gen_cop',
-           'cal_ext']
+           'cld_sat', 'cal_ext']
 
 
 def cal_ext(cot, cer, dz_km=1.0, qe=2.0):
@@ -310,6 +311,35 @@ def cld_gen_cop(cot_2d, cer_2d, cth_2d, cgt_2d=None, dx=0.25, dy=0.25,
     if cgt_2d is None:
         cgt_2d = np.minimum(1.0, cth_2d)
     cgt_2d = np.asarray(cgt_2d, dtype=np.float64)
+    nx, ny = cot_2d.shape
+    x, y = _regular_grid(nx, ny, dx, dy)
+    return _maps_to_3d(x, y, dx, dy, cot_2d, cer_2d, cth_2d, cgt_2d, dz=dz)
+
+
+def cld_sat(sat_obj=None, cot_2d=None, cer_2d=None, dx=0.25, dy=0.25,
+            cth=3.0, cgt=1.0, dz=0.1) -> Cloud3D:
+    """Satellite L2 cot/cer maps -> 3D extinction (cld_sat.py:18-285).
+
+    Accepts either a reader object exposing ``data['cot_2d']``/``['cer_2d']``
+    (and optionally ``cth_2d``) in the reference's ``{'data': ...}``
+    convention, or explicit 2D arrays.
+    """
+    if sat_obj is not None:
+        def get(k, default=None):
+            e = sat_obj.data.get(k)
+            return None if e is None else np.asarray(e['data'])
+        cot_2d = get('cot_2d')
+        cer_2d = get('cer_2d')
+        cth_2d = get('cth_2d')
+    else:
+        cth_2d = None
+    if cot_2d is None or cer_2d is None:
+        raise ValueError('cld_sat needs cot_2d and cer_2d')
+    cot_2d = np.asarray(cot_2d, dtype=np.float64)
+    cer_2d = np.asarray(cer_2d, dtype=np.float64)
+    if cth_2d is None:
+        cth_2d = np.full_like(cot_2d, cth)
+    cgt_2d = np.minimum(cgt, cth_2d)
     nx, ny = cot_2d.shape
     x, y = _regular_grid(nx, ny, dx, dy)
     return _maps_to_3d(x, y, dx, dy, cot_2d, cer_2d, cth_2d, cgt_2d, dz=dz)

@@ -1,8 +1,7 @@
 """Surface characterization: Lambertian, LSRT and Cox-Munk maps (NumPy copy
 of ``er3t_tpu/pre/sfc.py``: ``Surface`` and its type codes :11-55,
-``sfc_lambertian``, ``sfc_2d_gen`` :47-81, ``cal_ocean_brdf`` and
-``sfc_ocean`` :91-135).  The reference's satellite-reader ``sfc_sat`` is
-not copied yet (ROADMAP A13).
+``sfc_lambertian``, ``sfc_2d_gen`` :47-81, ``sfc_sat`` :84-88,
+``cal_ocean_brdf`` and ``sfc_ocean`` :91-135).
 """
 
 from __future__ import annotations
@@ -13,8 +12,8 @@ import numpy as np
 
 from ..physics.water import water_refractive_index
 
-__all__ = ['Surface', 'sfc_lambertian', 'sfc_2d_gen', 'cal_ocean_brdf',
-           'sfc_ocean', 'SFC_LAMBERTIAN', 'SFC_COXMUNK', 'SFC_LSRT']
+__all__ = ['Surface', 'sfc_lambertian', 'sfc_2d_gen', 'sfc_sat',
+           'cal_ocean_brdf', 'sfc_ocean', 'SFC_LAMBERTIAN', 'SFC_COXMUNK', 'SFC_LSRT']
 
 SFC_LAMBERTIAN = 1
 SFC_COXMUNK = 2
@@ -76,6 +75,13 @@ def sfc_2d_gen(data: np.ndarray) -> Surface:
     else:
         raise ValueError('surface parameter maps must have 1, 3 or 5 channels')
     return Surface(jsfc=jsfc, psfc=psfc)
+
+def sfc_sat(sat_obj) -> Surface:
+    """Surface from a satellite reader exposing ``data['alb_2d']``
+    (reference: sfc_sat.py:95-112)."""
+    alb = np.asarray(sat_obj.data['alb_2d']['data'], dtype=np.float64)
+    return sfc_lambertian(alb)
+
 
 def cal_ocean_brdf(wvl=650.0, u10=1.0, sal=34.3, pcl=0.01, whitecaps=True):
     """Cox-Munk ocean BRDF parameter set.

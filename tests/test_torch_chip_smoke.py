@@ -6,7 +6,9 @@ the CPU a wrapper runs its plain version and counts nothing).  What is
 checked is the script's control flow and its output: the contract's last
 two lines, every kernel's keys (floor, bound, library time), and the
 launch counts of the main path and of the probe path.  Phase 8's quasi
-renders are held against the JAX package's on the same small scene.
+renders are held against the JAX package's on the same small scene, and
+phase 11's reader and cloud values (the AHI granule gridded to 12 x 12)
+against the JAX package's on the same file, exactly.
 """
 
 import json
@@ -37,6 +39,7 @@ PHASE7 = ('ipa', 'p3d', 'ipa_flux', 'camera', 'camera_air', 'cf_dtau',
 PHASE8 = ('march_flux', 'march_rad', 'march_hr')
 PHASE9 = ('photon', 'decomp', 'flux', 'solve', 'process_group')
 PHASE10 = ('les', 'lut', 'curve', 'spectral_flux')
+PHASE11 = ('3d', 'ipa')
 
 
 def _small_scene(device):
@@ -71,6 +74,21 @@ def _quasi_ref(npix, n_steps):
     return {name: chip_smoke.quasi_summary(quasi_radiance(
         jscene, st, JConfig(sensor_type='camera', cam_npix=npix, **cam),
         n_steps), ab.weight) for name, cam in chip_smoke.QUASI_CAMERAS.items()}
+
+
+def _sat_exact(fname, nx):
+    """chip_smoke.SAT_EXACT of the granule gridded to nx x nx, from the JAX
+    package's reader and cld_sat on the same file."""
+    import chip_smoke_files
+    from er3t_tpu.pre.cld import cld_sat
+    from er3t_tpu.sat.ahi import ahi_l2
+    chip_smoke_files.write_ahi_clp(fname, seed=0)
+    obj = ahi_l2([fname], extent=chip_smoke_files.AHI_EXTENT, nx=nx, ny=nx)
+    cot = obj.data['cot_2d']['data']
+    cld = cld_sat(cot_2d=cot, cer_2d=np.where(cot > 0, obj.data['cer_2d'][
+        'data'], 0.0), dx=0.5, dy=0.5, cth=2.0, cgt=1.0, dz=0.5)
+    return (float(cot.sum()), float((cot > 0).mean()),
+            float(cld.extinction.sum()))
 
 
 def _counting(fn, attr='launches'):
@@ -131,7 +149,12 @@ def rehearsal(monkeypatch, tmp_path):
                         ('APPS_LES_REF_RUNS', tuple(r[0] for r in wide)),
                         ('APPS_LUT_REF_RUNS', ((wide[0][:1] * 5,) * 2,
                                                (wide[1][:1] * 5,) * 2)),
-                        ('APPS_CURVE_REF_RUNS', tuple(r[0] for r in wide))):
+                        ('APPS_CURVE_REF_RUNS', tuple(r[0] for r in wide)),
+                        ('SAT_NX', 12), ('SAT_PHOTONS', 6_000),
+                        ('SAT_REF_RUNS', dict.fromkeys(PHASE11, (
+                            (0.0,) * 3, (100.0,) * 3))),
+                        ('SAT_EXACT', _sat_exact(
+                            str(tmp_path / 'sat_ref.nc'), 12))):
         monkeypatch.setattr(chip_smoke, name, value)
     # one Mie table a wavelength for the whole rehearsal (phase 10 asks
     # for 650 nm three times and 1600 nm once)
@@ -306,10 +329,32 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
         assert abs(rec['rel_diff_f_down']) <= 0.03
         assert abs(rec['rel_diff_f_up']) <= 0.06
         assert rec['toa_direct_max_rel_err'] <= 1e-5
+    sat = report['sat']
+    assert set(sat) == set(PHASE11) | {'file_mb', 'write_s', 'read_s',
+                                       'grid', 'exact'}
+    assert sat['grid'] == [12, 12] and 30 < sat['file_mb'] < 45
+    assert sat['exact'] == list(chip_smoke.SAT_EXACT)
+    for name in PHASE11:
+        rec = sat[name]
+        assert rec['phase_pair_launches'] == rec['steps'] > 0, name
+        assert kernels[0][f'sat_{name}_launches'] == rec['steps'], name
+        assert all(n == 0 for k, n in rec['launches'].items()
+                   if k != 'phase_pair'), name
+        assert rec['photons'] == 6_000 and rec['photons_per_s'] > 0, name
+        assert rec['k1_bitwise_steps'] >= 1 and rec['k1_tables'] == 1, name
+        assert rec['passes_at_cap'] == sum(p['steps'] >= p['cap']
+                                           for p in rec['passes'])
+        assert rec['in_flight'] == sum(p['in_flight'] for p in rec['passes'])
+        assert rec['toa_direct_max_rel_err'] <= 1e-5, name
+        assert rec['track_level_km'] == 5.0, name
+        for key in ('f_down_sfc', 'f_up_toa', 'f_down_track'):
+            assert rec[key]['value'] > 0, (name, key)
+    assert any(line.startswith('# phase 11: ') for line in lines)
     k1_keys = {'flux_launches'} | {f'{m}_launches'
                                    for m in PHASE7 + PHASE8} \
         | {f'dist_{m}_launches' for m in PHASE9} \
-        | {f'apps_{m}_launches' for m in PHASE10}
+        | {f'apps_{m}_launches' for m in PHASE10} \
+        | {f'sat_{m}_launches' for m in PHASE11}
     for k in kernels:
         assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
                                  else set()), k['name']

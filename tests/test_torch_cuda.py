@@ -318,6 +318,38 @@ def test_phase_pair_at_the_lut_tables(cuda, wvl):
 
 
 @pytest.mark.cuda
+def test_phase_pair_at_the_ahi_tables(cuda, tmp_path):
+    """K1 on the phase tables of phase 11's scene (projects/03 on the AHI
+    granule of chip_smoke_files: the 532-nm Mie rows of its cloud),
+    bitwise against its plain version on 2^17 lanes spread over every row
+    and bin."""
+    import chip_smoke_files
+    fname = chip_smoke_files.write_ahi_clp(str(tmp_path / 'ahi_clp.nc'),
+                                           seed=0)
+    atm, ab, cld, pha, _ = chip_smoke.sat_scene(fname, chip_smoke.SAT_NX)
+    scene, _ = build_scene(atm, ab, cld=cld, pha=pha, surface=0.06,
+                           solar_zenith_angle=chip_smoke.SAT_SZA,
+                           solar_azimuth_angle=chip_smoke.SAT_SAA,
+                           device=cuda)
+    npf = scene.pt_mu.shape[0]
+    assert scene.pt_p.shape[0] == 2 * npf and npf >= 2
+    rng = np.random.default_rng(532)
+    b = 1 << 17
+    apf = rng.integers(0, npf, b).astype(np.int32)
+    row_e = (apf + np.where(rng.integers(0, 2, b) > 0, npf, 0)).astype(
+        np.int32)
+    lanes = [torch.from_numpy(x).to(cuda) for x in (
+        apf, row_e, rng.uniform(-1, 1, b).astype(np.float32),
+        rng.uniform(1e-7, 1 - 1e-7, b).astype(np.float32))]
+    before = phase_pair.launches
+    pe, mn = phase_pair(*lanes, scene.pt_p, scene.pt_mu)
+    ref_pe, ref_mn = phase_pair_ref(*lanes, scene.pt_p, scene.pt_mu)
+    torch.cuda.synchronize()
+    assert phase_pair.launches == before + 1
+    assert torch.equal(pe, ref_pe) and torch.equal(mn, ref_mn)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('b', [1 << 17, 100_003], ids=['B131072', 'B100003'])
 def test_phase_pair_bf16_kernel_equals_plain(cuda, b):
     """The bf16 instance (K7/K8 make_pair) at the probe scripts' tables:

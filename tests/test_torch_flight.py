@@ -20,7 +20,7 @@ from er3t_tpu.pre.abs import abs_synthetic
 from er3t_tpu.pre.aer import Aerosol1D, Aerosol3D
 from er3t_tpu.pre.cld import cld_gen_hem, cld_gen_hom
 from er3t_tpu.pre.pha import pha_mie_wc
-from er3t_tpu.pre.sfc import sfc_2d_gen
+from er3t_tpu.pre.sfc import sfc_2d_gen, sfc_ocean
 from er3t_tpu.rtm import mc_flight as jmf
 from er3t_tpu.rtm.mc import SolverConfig as JConfig
 from er3t_tpu.rtm.out import spectral_factors
@@ -36,17 +36,20 @@ KW = dict(target='radiance', batch=B, n_scat_max=300, tile_size=16,
 
 
 @functools.lru_cache(maxsize=None)
-def _broken():
+def _broken(ocean=False):
     """32x32 broken-cloud Mie scene, 4 g-points, 20-deg truncation; the
-    production knobs (tiles, stratified launch, in-step contraction)."""
+    production knobs (tiles, stratified launch, in-step contraction);
+    ``ocean``: a Cox-Munk ocean (u10 = 5 m/s) in place of the Lambertian
+    surface."""
     levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
     atm = atm_atmmod(levels)
     ab = abs_synthetic(650.0, atm, ng=4)
     cld = cld_gen_hem(nx=32, ny=32, nz=4, dx=0.2, dy=0.2, dz=0.5,
                       cloud_frac_tgt=0.3, radii=(0.4,), cot_scale=12.0,
                       cloud_base=0.5, seed=3)
+    surface = sfc_ocean(650.0, u10=5.0, nx=32, ny=32) if ocean else 0.05
     scn, st = build_scene(atm, ab, cld=cld, pha=pha_mie_wc(650.0),
-                          surface=0.05, solar_zenith_angle=30.0,
+                          surface=surface, solar_zenith_angle=30.0,
                           solar_azimuth_angle=45.0, forward_trunc_deg=20.0)
     rad_w = spectral_factors(ab, nz_out=1)[0][0]
     return scn, st, rad_w, KW
@@ -88,9 +91,15 @@ def _to_port(c):
                            flux=torch.zeros(1, ng), absorbed=torch.zeros(1, 1))
 
 
-@pytest.mark.parametrize('make', [_broken, _mixed], ids=['broken', 'mixed'])
-def test_step_parity_with_injected_deviates(make):
+# ocean: the broken scene seen by a slant sensor near the sun's glint
+@pytest.mark.parametrize('make, sensor', [
+    (_broken, {}), (_mixed, {}),
+    (functools.partial(_broken, ocean=True),
+     dict(sensor_zenith=30.0, sensor_azimuth=225.0))],
+    ids=['broken', 'mixed', 'ocean'])
+def test_step_parity_with_injected_deviates(make, sensor):
     scn, st, rad_w, kw = make()
+    kw = dict(kw, **sensor)
     n_photon = 60000
     key = jax.random.key(0)
     body, _, c = jmf.make_flight_kernel(

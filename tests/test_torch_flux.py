@@ -25,6 +25,7 @@ from er3t_tpu.pre.atm import atm_atmmod
 from er3t_tpu.pre.abs import abs_synthetic
 from er3t_tpu.pre.cld import cld_gen_hem, cld_gen_hom
 from er3t_tpu.pre.pha import pha_mie_wc
+from er3t_tpu.pre.sfc import sfc_ocean
 from er3t_tpu.rtm import mc_flight as jmf
 from er3t_tpu.rtm import out as jout
 from er3t_tpu.rtm import solver as jsolver
@@ -47,22 +48,25 @@ MODES = {
     'kx4': dict(flux_per_column=True, flux_kcross=4),
     'kx0': dict(flux_per_column=True, flux_kcross=0),
     'domain_absorbed': dict(flux_per_column=False),
+    'ocean_kx4_flux_w': dict(flux_per_column=True, flux_kcross=4),
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _broken():
+def _broken(ocean=False):
     """32x32 broken-cloud Mie scene, 4 g-points, 20-deg truncation, a
     reflecting surface (the scene of tests/test_torch_flight.py) and its
-    (Nz+1, Ng) flux factors."""
+    (Nz+1, Ng) flux factors; ``ocean``: a Cox-Munk ocean (u10 = 5 m/s) in
+    place of the Lambertian surface."""
     levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
     atm = atm_atmmod(levels)
     ab = abs_synthetic(650.0, atm, ng=4)
     cld = cld_gen_hem(nx=32, ny=32, nz=4, dx=0.2, dy=0.2, dz=0.5,
                       cloud_frac_tgt=0.3, radii=(0.4,), cot_scale=12.0,
                       cloud_base=0.5, seed=3)
+    surface = sfc_ocean(650.0, u10=5.0, nx=32, ny=32) if ocean else 0.05
     scn, st = build_scene(atm, ab, cld=cld, pha=pha_mie_wc(650.0),
-                          surface=0.05, solar_zenith_angle=30.0,
+                          surface=surface, solar_zenith_angle=30.0,
                           solar_azimuth_angle=45.0, forward_trunc_deg=20.0)
     flux_w = jout.spectral_factors(ab, nz_out=st.nz + 1)[0]
     return ab, scn, st, flux_w
@@ -98,9 +102,9 @@ def _close(got, ref, what, atol=1e-5):
 
 @pytest.mark.parametrize('mode', list(MODES))
 def test_flux_step_parity_with_injected_deviates(mode):
-    ab, scn, st, flux_w = _broken()
+    ab, scn, st, flux_w = _broken(ocean=mode.startswith('ocean'))
     kw = dict(BASE, **MODES[mode])
-    fw = flux_w if mode == 'kx4_flux_w' else None
+    fw = flux_w if mode.endswith('kx4_flux_w') else None
     n_photon = 60000
     key = jax.random.key(0)
     body, _, c = jmf.make_flight_kernel(
@@ -113,7 +117,8 @@ def test_flux_step_parity_with_injected_deviates(mode):
                             n_photon, flux_w=fw)
     assert (kern.kx, kern.scalar_flux, kern.tally_absorbed) == {
         'kx4_flux_w': (4, True, False), 'kx4': (4, False, False),
-        'kx0': (0, False, False), 'domain_absorbed': (0, False, True)}[mode]
+        'kx0': (0, False, False), 'domain_absorbed': (0, False, True),
+        'ocean_kx4_flux_w': (4, True, False)}[mode]
     scale = {'x': st.nx * st.dx, 'y': st.ny * st.dy,
              'z': float(scn.z_lev[-1])}
     for k in range(6):

@@ -41,8 +41,12 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.physics.twostream',
                 'er3t_tpu_torch.physics.cloud_optics', 'er3t_tpu_torch.apps',
                 'er3t_tpu_torch.apps.cldpos', 'er3t_tpu_torch.apps.lut',
-                'er3t_tpu_torch.apps.spectral', 'chip_smoke_files',
-                'chip_smoke')
+                'er3t_tpu_torch.apps.spectral', 'er3t_tpu_torch.util.geo',
+                'er3t_tpu_torch.util.misc', 'er3t_tpu_torch.sat',
+                'er3t_tpu_torch.sat.ahi', 'er3t_tpu_torch.sat.oco2',
+                'er3t_tpu_torch.sat.calipso', 'er3t_tpu_torch.sat.daac',
+                'er3t_tpu_torch.sat.viirs', 'er3t_tpu_torch.sat.modis',
+                'chip_smoke_files', 'chip_smoke')
 
 
 def _python(code, **env):
@@ -64,6 +68,26 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == 'clean'
+
+
+def test_phase11_path_loads_no_h5py(tmp_path):
+    """The card machine has no h5py, netCDF4 or pyhdf: phase 11 of
+    chip_smoke.py writes its AHI granule (chip_smoke_files.write_ahi_clp)
+    and reads it (sat.ahi.ahi_l2 in chip_smoke.sat_scene) with none of
+    them loaded."""
+    fname = str(tmp_path / 'ahi_clp.nc')
+    code = ('import sys\n'
+            'import chip_smoke, chip_smoke_files\n'
+            f'fn = chip_smoke_files.write_ahi_clp({fname!r}, seed=0, '
+            'lon=(119.0, 123.0), lat=(18.0, 14.0))\n'
+            'cot = chip_smoke.sat_scene(fn, 12)[-1]\n'
+            "bad = sorted(m for m in sys.modules if m.startswith(('h5py', "
+            "'netCDF4', 'pyhdf')))\n"
+            'assert not bad, bad\n'
+            "print(cot.shape)\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '(12, 12)'
 
 
 @pytest.mark.parametrize('fn', [scene.build_scene, solver.solve,

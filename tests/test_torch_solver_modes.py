@@ -32,6 +32,7 @@ from er3t_tpu.rtm.mc import SolverConfig as JConfig
 from er3t_tpu.rtm.scene import build_scene as jbuild_scene
 from er3t_tpu_torch.pre.abs import abs_synthetic as tabs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod as tatm_atmmod
+from er3t_tpu_torch.pre.sfc import sfc_ocean
 from er3t_tpu_torch.rtm import mc_flight as tmf
 from er3t_tpu_torch.rtm import out as tout
 from er3t_tpu_torch.rtm import solver
@@ -71,6 +72,20 @@ def test_independent_g_matches_correlated(atm):
     rc = _solve(spectral='correlated', photons=150000, seed=1, **kw)
     ri = _solve(spectral='independent', photons=300000, seed=2, **kw)
     assert ri['rad'][0, 0] == pytest.approx(rc['rad'][0, 0], rel=0.05)
+
+
+def test_flux_over_ocean_surface(atm):
+    """:40: a typed Cox-Munk surface in the flight engine's flux target:
+    the ocean is dark, most energy is absorbed at the surface."""
+    ab = tabs_synthetic(650.0, atm)
+    ab.abso_coef[:] = 0.0
+    ocean = sfc_ocean(650.0, u10=5.0)
+    res = _solve(atm=atm, abs_coef=ab, surface=ocean, target='flux',
+                 solar_zenith_angle=30.0, photons=40000, n_run=1,
+                 batch=1 << 12)
+    f_up_toa = float(np.squeeze(res['f_up'])[-1])
+    f_dn_sfc = float(np.squeeze(res['f_down'])[0])
+    assert 0.0 < f_up_toa < 0.15 * f_dn_sfc  # ocean albedo ~2-6%
 
 
 def test_result_h5_roundtrip(atm, tmp_path):
