@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (er3t_tpu_torch) on one NVIDIA GPU.
 
-    python chip_smoke.py                 # needs one CUDA card; ~10 min
+    python chip_smoke.py                 # needs one CUDA card; ~12 min
     python chip_smoke.py --profile       # also a torch.profiler window
 
 Phases (any failure raises and the exit code is non-zero):
@@ -140,6 +140,30 @@ Phases (any failure raises and the exit code is non-zero):
    SAT_REF_RUNS; the wall of the files apart from the solves, and each
    solve's wall, steps, passes at the step cap, lanes in flight and
    photons/s printed;
+12. the last host-side modules: (a) the native C++ solver
+   (native/mc_ref.cpp through er3t_tpu_torch.native, built by g++ into
+   build/er3t_tpu_torch/; its build wall and OpenMP threads printed) on
+   the scene of tests/test_cross_native.py built on the card, 1e6
+   photons for flux and for radiance, against the flight engine's flux
+   (domain average) and nadir radiance and the marching engine's flux,
+   1e6 each: every pair of flux tallies within 5 % at each level (down-
+   direct and up) and 8 % for the surface down-diffuse, the radiance's
+   domain mean within 4 % and its cloudy and clear halves within 6 %
+   (the reference test's bounds), each relative difference printed;
+   (b) examples/00_er3t_tpu_torch.py's cases 01 (clear-sky flux) and 06
+   (200 x 200 hemispherical-cloud nadir radiance, 5-deg truncation) at
+   their defaults (1e6 photons, 3 runs) through the script's own case
+   functions, its images to chiprun_out/phase12/, each with every launch
+   count set to 0 just before it, phase_pair launched once per flight
+   step and held bitwise against its plain version on inputs captured
+   from the path's steps: case 01's TOA down-direct = toa * mu0 to 1e-5,
+   its surface f_down and TOA f_up, and case 06's domain mean, against
+   EXAMPLES_REF_RUNS within max(1 %, 4 sigma); walls, steps, passes at
+   the step cap and lanes in flight printed; (c) vis: the comparison
+   page of case 06's image (one panel from a tensor on the card) holds
+   the image's 2 x 2 block means; the cases' PNGs are written and
+   checked non-empty where matplotlib is installed, and where it is not
+   (the card machine) the PNG writers are never called;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -166,13 +190,15 @@ over 3.35 TB/s and its float operations over 67 TFLOP/s.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
 build/chip_smoke.json (phase 8 under "march" and "quasi", phase 9 under
-"dist", phase 10 under "apps", phase 11 under "sat"; the input files of
-phases 10 and 11 go to build/phase10/ and build/phase11/).  With --profile, 20 radiance steps and 20 flux steps
+"dist", phase 10 under "apps", phase 11 under "sat", phase 12 under
+"scripts"; the input files of phases 10 and 11 go to build/phase10/ and
+build/phase11/).  With --profile, 20 radiance steps and 20 flux steps
 are profiled (keys "profile" and "profile_flux").
 """
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -186,7 +212,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import chip_smoke_files
-from er3t_tpu_torch import _build
+from er3t_tpu_torch import _build, native, vis
 from er3t_tpu_torch.apps.lut import (func_ref_vs_cot,
                                      gen_bispectral_lookup_table,
                                      retrieve_cot_cer)
@@ -197,7 +223,7 @@ from er3t_tpu_torch.pre.abs_16g_db import abs_16g_from_txt
 from er3t_tpu_torch.pre.abs_gen import gen_abs_16g_h5
 from er3t_tpu_torch.pre.aer import aer_les
 from er3t_tpu_torch.pre.atm import atm_atmmod
-from er3t_tpu_torch.pre.cld import cld_gen_hem, cld_les, cld_sat
+from er3t_tpu_torch.pre.cld import cld_gen_hem, cld_gen_hom, cld_les, cld_sat
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
@@ -647,6 +673,40 @@ SAT_REF_RUNS = {   # per seed: (surface f_down, TOA f_up, track f_down 5 km)
             (1.4961552619934082, 0.2674108147621155, 1.635565996170044))}
 SAT_REF_PHOTONS = 1_000_000
 
+# Phase 12 (b), examples/00_er3t_tpu.py's own case functions 01 and 06 at
+# their defaults (1e6 photons, n_run=3) on the CPU at the card's batch
+# (2^17, so that the step cap is the card's), each run's values kept
+# (mode='all'); its PNGs go to build/phase12_ref/, not to examples/output/
+# (run here as two processes, one a case; about a minute each):
+EXAMPLES_REF_COMMAND = """\
+JAX_PLATFORMS=cpu python - 01 <<'EOF'   # from the repository root; 01 or 06
+import importlib.util, os, sys
+import jax; jax.config.update('jax_platforms', 'cpu')
+import numpy as np
+spec = importlib.util.spec_from_file_location('ex00', 'examples/00_er3t_tpu.py')
+ex = importlib.util.module_from_spec(spec); spec.loader.exec_module(ex)
+ex.OUT = 'build/phase12_ref'; os.makedirs(ex.OUT, exist_ok=True)
+plain = ex.solver.solve
+def solve(**kw):
+    res = plain(**kw, batch=1 << 17, mode='all')
+    for r in res.runs:
+        if 'rad' in r:
+            print(sys.argv[1], repr(float(np.mean(r['rad']))))
+        else:
+            print(sys.argv[1], repr(float(np.squeeze(r['f_down'])[0])),
+                  repr(float(np.squeeze(r['f_up'])[-1])))
+    return res
+ex.solver.solve = solve
+ex.EXAMPLES[sys.argv[1]](1e6)
+EOF"""
+EXAMPLES_REF_RUNS = {
+    '01': ((1.3276996392460836, 0.07229093356799132),   # (surface f_down,
+           (1.3279793427507776, 0.07203604245124098),   #  TOA f_up) a run
+           (1.3276744561461649, 0.07242377593260166)),
+    '06': ((0.05653087794780731,), (0.05634588003158569,),   # domain-mean
+           (0.05631595477461815,))}                          # radiance a run
+EXAMPLES_REF_PHOTONS = 1_000_000
+
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
 GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
@@ -693,6 +753,12 @@ SAT_PHOTONS = 1_000_000          # phase 11: per solve, one run a solver
 SAT_NX = chip_smoke_files.AHI_NX   # phase 11: the grid of the AHI extent
 SAT_WAVELENGTH = 532.0           # phase 11: projects/03's defaults
 SAT_SZA, SAT_SAA, SAT_ALT_KM = 25.0, 45.0, 5.0
+EXAMPLE_00 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'examples', '00_er3t_tpu_torch.py')
+EXAMPLES_PHOTONS = 1e6           # phase 12 (b): example 00's --photons default
+EXAMPLES_OUT = os.path.join('chiprun_out', 'phase12')   # its images and page
+NATIVE_PHOTONS = 1_000_000       # phase 12 (a): per run of each solver
+HTML_MAX_PX = 100                # phase 12 (c): the page block-averages 2 x 2
 AIR_CAMERA = dict(zloc=8000.0, the=180.0, qmax=60.0, npix=64, apsize=50.0)
 # phase 7 (c): split_wmax 0.5 (the reference's tests' value): the
 # production config's weights stay at or below 1, so a window of 2 would
@@ -1175,6 +1241,9 @@ def run(args, dev):
     # ---- 11. the satellite layer ----
     max_err = max(max_err, sat_phase(args, dev, report))
 
+    # ---- 12. the native bridge, the example driver and vis ----
+    max_err = max(max_err, scripts_phase(args, dev, report))
+
     # ---- 6. probe phase ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1233,6 +1302,9 @@ def run(args, dev):
     for name in ('3d', 'ipa'):
         pp_entry[f'sat_{name}_launches'] = \
             report['sat'][name]['phase_pair_launches']
+    for case in ('01', '06'):
+        pp_entry[f'examples_{case}_launches'] = \
+            report['scripts'][f'example_{case}']['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name])
@@ -2173,6 +2245,223 @@ def sat_phase(args, dev, report):
                                           if kk != 'passes'}
                                          if isinstance(v, dict) else v)
                                      for k, v in sat.items()}))
+    return err
+
+
+def load_script(path, name):
+    """The driver at ``path`` as a module named ``name`` (its file name
+    starts with a digit), its ``main`` not run."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def native_scene(dev):
+    """The scene of tests/test_cross_native.py:20-30 on ``dev``: 4 x 4
+    columns of 1 km, a homogeneous cloud (COT 6, 1-3 km) over half of
+    them."""
+    atm = atm_atmmod(np.linspace(0, 20, 21))
+    ab = abs_synthetic(650.0, atm)
+    cld = cld_gen_hom(nx=4, ny=4, nz=2, dx=1.0, dy=1.0, cot0=6.0, cer0=10.0,
+                      cloud_base=1.0, cloud_top=3.0)
+    cld.extinction[2:] = 0.0   # half cloudy, half clear
+    cld.cer[2:] = 0.0
+    scene, st = build_scene(atm, ab, cld=cld, surface=0.15,
+                            solar_zenith_angle=30.0, device=dev)
+    return ab, scene, st
+
+
+def cross_flux(name, a, b, w):
+    """Relative differences of two (nz+1, 3, ng) flux tallies per photon
+    at tests/test_cross_native.py:44-58's bounds: 5 % at every level
+    (above 1e-3) of down-direct and up, 8 % for the surface down-diffuse.
+    Returns the worst of each."""
+    out = {}
+    for ch, key in ((0, 'down_direct'), (2, 'up')):
+        x, y = a[:, ch, :] @ w, b[:, ch, :] @ w
+        sel = x > 1e-3
+        out[key] = float(np.max(np.abs(x[sel] / y[sel] - 1)))
+    out['sfc_down_diffuse'] = float((a[0, 1, :] @ w) / (b[0, 1, :] @ w) - 1)
+    log(f'# phase 12 native {name}: worst level down-direct '
+        f'{out["down_direct"]:+.3%}, up {out["up"]:+.3%}; surface '
+        f'down-diffuse {out["sfc_down_diffuse"]:+.3%}')
+    check(out['down_direct'] <= 0.05 and out['up'] <= 0.05
+          and abs(out['sfc_down_diffuse']) <= 0.08,
+          f'native {name}: {out} beyond 5 % per level / 8 % surface '
+          f'down-diffuse')
+    return out
+
+
+def native_phase(args, dev):
+    """Phase 12 (a): the C++ solver through the port's bridge on a scene
+    whose tensors live on the card, against the flight engine (flux and
+    radiance) and the marching engine (flux) on the same scene."""
+    t0 = time.perf_counter()
+    lib = native.ensure_built()
+    threads = native.max_threads()
+    rec = dict(library=os.path.basename(lib),
+               build_s=native.build_seconds, load_s=time.perf_counter() - t0,
+               omp_threads=threads if threads is not None else 'serial')
+    built = ('found built' if native.build_seconds is None
+             else f'built by g++ in {native.build_seconds:.2f} s')
+    log(f'# phase 12 native: {rec["library"]} {built}, OpenMP threads '
+        f'{rec["omp_threads"]}')
+    ab, scene, st = native_scene(dev)
+    check(scene.ext3d.device.type == dev.type, 'native: scene not on the '
+                                               'card')
+    w, n = ab.weight, NATIVE_PHOTONS
+    runs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[name] = dict(wall_s=time.perf_counter() - t0)
+        return out
+
+    _, flux_nat, n_nat = timed('native_flux', lambda: native.mc_ref_run(
+        scene, st, albedo=0.15, sza_deg=30.0, saa_deg=0.0, n_photon=n,
+        seed=args.seed + 77, do_radiance=False))
+    rad_nat, _, _ = timed('native_rad', lambda: native.mc_ref_run(
+        scene, st, albedo=0.15, sza_deg=30.0, saa_deg=0.0, n_photon=n,
+        seed=args.seed + 99))
+    flux_cfg = SolverConfig(target='flux', batch=BATCH, flux_per_column=False)
+    rad_cfg = SolverConfig(target='radiance', batch=BATCH)
+    t_flux = timed('flight_flux', lambda: mc_flight.run_transport_flight(
+        scene, st, flux_cfg, n, args.seed + 21, dev))
+    t_rad = timed('flight_rad', lambda: mc_flight.run_transport_flight(
+        scene, st, rad_cfg, n, args.seed + 31, dev))
+    t_march = timed('march_flux', lambda: mc.run_transport(
+        scene, st, flux_cfg, n, seed=args.seed + 41, device=dev))
+    for name, t in (('flight_flux', t_flux), ('flight_rad', t_rad),
+                    ('march_flux', t_march)):
+        check(int(t.n_launched) == n, f'native {name}: launched '
+                                      f'{int(t.n_launched)} of {n}')
+        runs[name]['steps'] = int(t.n_steps)
+    flux_fl = t_flux.flux[0, 0].double().cpu().numpy() / n
+    flux_mc = t_march.flux[0, 0].double().cpu().numpy() / n
+    flux_nat = flux_nat / n_nat
+    rec['flux'] = {'flight_vs_native': cross_flux('flight vs C++', flux_fl,
+                                                  flux_nat, w),
+                   'march_vs_native': cross_flux('marching vs C++', flux_mc,
+                                                 flux_nat, w),
+                   'flight_vs_march': cross_flux('flight vs marching',
+                                                 flux_fl, flux_mc, w)}
+    # nadir radiance (tests/test_cross_native.py:68-75): the domain mean
+    # within 4 %, the cloudy and the clear half within 6 %
+    rad_fl = (t_rad.rad.double().cpu().numpy() @ w) / n
+    rad_nat = (rad_nat @ w) / n_nat
+    rel = {k: float(rad_fl[sl].mean() / rad_nat[sl].mean() - 1)
+           for k, sl in (('mean', np.s_[:]), ('cloudy', np.s_[:2]),
+                         ('clear', np.s_[2:]))}
+    log(f'# phase 12 native flight vs C++ radiance: domain mean '
+        f'{rel["mean"]:+.3%}, cloudy half {rel["cloudy"]:+.3%}, clear half '
+        f'{rel["clear"]:+.3%}')
+    check(abs(rel['mean']) <= 0.04 and abs(rel['cloudy']) <= 0.06
+          and abs(rel['clear']) <= 0.06,
+          f'native radiance: flight vs C++ {rel} beyond 4 % / 6 %')
+    rec.update(radiance_flight_vs_native=rel, photons=n, runs=runs)
+    log('# phase 12 native: ' + json.dumps(runs))
+    return rec
+
+
+def html_fields(fname):
+    """The two fields a page of vis.compare_data_2d_html holds."""
+    with open(fname) as f:
+        text = f.read()
+    return [np.array(json.loads(text.split(f'const {k} = ', 1)[1]
+                                .split(';\n', 1)[0])) for k in ('A', 'B')]
+
+
+def scripts_phase(args, dev, report):
+    """Phase 12: the native bridge on the card's scene (native_phase), then
+    examples/00_er3t_tpu_torch.py's cases 01 and 06 at their defaults
+    through its own case functions, and the comparison page of case 06's
+    image (see the module docstring).  Returns the largest phase_pair
+    |kernel - plain| on the captured inputs."""
+    rep = report['scripts'] = {'native': native_phase(args, dev)}
+    ex = load_script(EXAMPLE_00, 'example_00_torch')
+    ex.OUT = EXAMPLES_OUT
+    os.makedirs(EXAMPLES_OUT, exist_ok=True)
+    # the card machine may have no matplotlib: then the case functions'
+    # PNG writers are never called (the images are kept in memory instead)
+    have_mpl = importlib.util.find_spec('matplotlib') is not None
+    drawn = {}
+    if not have_mpl:
+        def keep(data, *a, fname=None, **kw):
+            drawn[os.path.basename(fname)] = data
+        ex.plot_flux_profile = ex.quicklook_radiance = keep
+    rep['matplotlib'] = have_mpl
+    err = 0.0
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+    res, rec, e = captured_path('phase 12 example 01', lambda run: (
+        ex.EXAMPLES['01'](EXAMPLES_PHOTONS, device=dev)))
+    err = max(err, e)
+    f_dn, f_up = np.squeeze(res['f_down']), np.squeeze(res['f_up'])
+    direct = np.squeeze(res['f_down_direct'])
+    check(f_dn.ndim == 1 and f_dn.shape == f_up.shape == direct.shape
+          and np.isfinite(f_dn).all() and np.isfinite(f_up).all(),
+          f'example 01: f_down {f_dn.shape}, f_up {f_up.shape} not finite '
+          f'domain-average profiles')
+    check(res.n_photon_effective == 3 * EXAMPLES_PHOTONS,
+          f'example 01: launched {res.n_photon_effective} photons')
+    toa_err = float(abs(direct[-1] / (res.toa * mu0) - 1))
+    check(toa_err <= 1e-5, f'example 01: TOA down-direct off toa * mu0 by '
+                           f'{toa_err}')
+    refs = EXAMPLES_REF_RUNS['01']
+    rec.update(toa_direct_rel_err=toa_err, f_down_sfc=against_ref(
+        'example 01 surface f_down', float(f_dn[0]), [r[0] for r in refs],
+        EXAMPLES_REF_PHOTONS, 3 * EXAMPLES_PHOTONS, 0.01), f_up_toa=against_ref(
+        'example 01 TOA f_up', float(f_up[-1]), [r[1] for r in refs],
+        EXAMPLES_REF_PHOTONS, 3 * EXAMPLES_PHOTONS, 0.01))
+    rep['example_01'] = rec
+
+    res, rec, e = captured_path('phase 12 example 06', lambda run: (
+        ex.EXAMPLES['06'](EXAMPLES_PHOTONS, device=dev)))
+    err = max(err, e)
+    rad = np.asarray(res['rad'])
+    check(rad.shape == (200, 200) and np.isfinite(rad).all()
+          and (rad >= 0).all(), f'example 06: rad {rad.shape} not a finite '
+                                f'200 x 200 image >= 0')
+    check(res.n_photon_effective == 3 * EXAMPLES_PHOTONS,
+          f'example 06: launched {res.n_photon_effective} photons')
+    rec['domain_mean'] = against_ref(
+        'example 06 domain-mean radiance', float(rad.mean()),
+        [r[0] for r in EXAMPLES_REF_RUNS['06']], EXAMPLES_REF_PHOTONS,
+        3 * EXAMPLES_PHOTONS, 0.01)
+    rep['example_06'] = rec
+
+    # (c) the comparison page of case 06's image: one panel from a tensor
+    # on the card, one from the host array; the page holds the image's
+    # block means (intv.py:97-101)
+    page = vis.compare_data_2d_html(
+        torch.from_numpy(rad).to(dev), rad, name0='card tensor',
+        name1='host array', fname=os.path.join(EXAMPLES_OUT, '06_rad_hem.html'),
+        title='example 06', max_px=HTML_MAX_PX)
+    step = int(np.ceil(max(rad.shape) / HTML_MAX_PX))
+    n0, n1 = rad.shape[0] // step * step, rad.shape[1] // step * step
+    want = np.round(rad.astype(np.float64)[:n0, :n1].reshape(
+        n0 // step, step, n1 // step, step).mean((1, 3)), 7)
+    fields = html_fields(page)
+    check(all(f.shape == want.shape and np.array_equal(f, want)
+              for f in fields), f'page {page}: its fields are not the '
+                                f'image\'s {step} x {step} block means')
+    pngs = {'01_flux_clear_sky.png': 0, '06_rad_hem.png': 0}
+    if have_mpl:
+        for f in pngs:
+            pngs[f] = os.path.getsize(os.path.join(EXAMPLES_OUT, f))
+        check(all(pngs.values()), f'example PNGs empty: {pngs}')
+    else:
+        check(sorted(drawn) == sorted(pngs), f'images drawn: {sorted(drawn)}')
+    rep['vis'] = dict(page=page, page_bytes=os.path.getsize(page),
+                      block=step, page_shape=list(want.shape), pngs=pngs,
+                      png_writers_called=have_mpl)
+    log('# phase 12: ' + json.dumps({k: ({kk: vv for kk, vv in v.items()
+                                          if kk not in ('passes', 'k1_shapes')}
+                                         if isinstance(v, dict) else v)
+                                     for k, v in rep.items()}))
     return err
 
 

@@ -8,10 +8,14 @@ two lines, every kernel's keys (floor, bound, library time), and the
 launch counts of the main path and of the probe path.  Phase 8's quasi
 renders are held against the JAX package's on the same small scene, and
 phase 11's reader and cloud values (the AHI granule gridded to 12 x 12)
-against the JAX package's on the same file, exactly.
+against the JAX package's on the same file, exactly.  Phase 12 runs
+example 00's cases 01 and 06 at 4000 photons a run and the native bridge
+at 80000 photons, each solver held against the others at the reference
+test's bounds.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -40,6 +44,7 @@ PHASE8 = ('march_flux', 'march_rad', 'march_hr')
 PHASE9 = ('photon', 'decomp', 'flux', 'solve', 'process_group')
 PHASE10 = ('les', 'lut', 'curve', 'spectral_flux')
 PHASE11 = ('3d', 'ipa')
+PHASE12 = ('01', '06')
 
 
 def _small_scene(device):
@@ -154,7 +159,12 @@ def rehearsal(monkeypatch, tmp_path):
                         ('SAT_REF_RUNS', dict.fromkeys(PHASE11, (
                             (0.0,) * 3, (100.0,) * 3))),
                         ('SAT_EXACT', _sat_exact(
-                            str(tmp_path / 'sat_ref.nc'), 12))):
+                            str(tmp_path / 'sat_ref.nc'), 12)),
+                        ('NATIVE_PHOTONS', 80_000),
+                        ('EXAMPLES_PHOTONS', 4_000),
+                        ('EXAMPLES_REF_RUNS', {
+                            '01': wide, '06': tuple(r[:1] for r in wide)}),
+                        ('EXAMPLES_OUT', str(tmp_path / 'phase12'))):
         monkeypatch.setattr(chip_smoke, name, value)
     # one Mie table a wavelength for the whole rehearsal (phase 10 asks
     # for 650 nm three times and 1600 nm once)
@@ -350,11 +360,45 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
         for key in ('f_down_sfc', 'f_up_toa', 'f_down_track'):
             assert rec[key]['value'] > 0, (name, key)
     assert any(line.startswith('# phase 11: ') for line in lines)
+    scripts = report['scripts']
+    assert set(scripts) == {'native', 'example_01', 'example_06', 'vis',
+                            'matplotlib'}
+    nat = scripts['native']
+    assert nat['photons'] == 80_000 and nat['library'].startswith('libmc_ref')
+    assert set(nat['runs']) == {'native_flux', 'native_rad', 'flight_flux',
+                                'flight_rad', 'march_flux'}
+    assert all(r['wall_s'] > 0 for r in nat['runs'].values())
+    assert set(nat['flux']) == {'flight_vs_native', 'march_vs_native',
+                                'flight_vs_march'}
+    for rel in nat['flux'].values():
+        assert rel['down_direct'] <= 0.05 and rel['up'] <= 0.05
+        assert abs(rel['sfc_down_diffuse']) <= 0.08
+    assert abs(nat['radiance_flight_vs_native']['mean']) <= 0.04
+    for case in PHASE12:
+        rec = scripts[f'example_{case}']
+        assert rec['phase_pair_launches'] == rec['steps'] > 0, case
+        assert kernels[0][f'examples_{case}_launches'] == rec['steps'], case
+        assert all(n == 0 for k, n in rec['launches'].items()
+                   if k != 'phase_pair'), case
+        assert rec['photons'] == 12_000 and rec['k1_bitwise_steps'] >= 1
+        assert rec['passes_at_cap'] == sum(p['steps'] >= p['cap']
+                                           for p in rec['passes'])
+    assert scripts['example_01']['toa_direct_rel_err'] <= 1e-5
+    assert scripts['example_01']['f_down_sfc']['value'] > 0
+    assert scripts['example_06']['domain_mean']['value'] > 0
+    page = scripts['vis']
+    assert page['block'] == 2 and page['page_shape'] == [100, 100]
+    assert scripts['matplotlib'] is page['png_writers_called'] is True
+    assert all(n > 0 for n in page['pngs'].values())
+    assert sorted(os.listdir(rehearsal / 'phase12')) == [
+        '01_flux_clear_sky.png', '06_rad_hem.html', '06_rad_hem.png']
+    assert any(line.startswith('# phase 12: ') for line in lines)
     k1_keys = {'flux_launches'} | {f'{m}_launches'
                                    for m in PHASE7 + PHASE8} \
         | {f'dist_{m}_launches' for m in PHASE9} \
         | {f'apps_{m}_launches' for m in PHASE10} \
-        | {f'sat_{m}_launches' for m in PHASE11}
+        | {f'sat_{m}_launches' for m in PHASE11} \
+        | {f'examples_{m}_launches' for m in PHASE12}
     for k in kernels:
         assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
                                  else set()), k['name']
@@ -408,3 +452,58 @@ def test_reference_tolerance_scales_the_runs_spread():
         'tol'] == pytest.approx(0.0105)
     with pytest.raises(AssertionError, match='not within'):
         chip_smoke.against_ref('x', 1.5, runs, 100, 400, 0.01)
+
+
+def test_phase12_without_matplotlib_never_calls_the_png_writers(
+        monkeypatch, tmp_path):
+    """Where matplotlib is not installed (the card machine), phase 12 runs
+    example 00's cases with their PNG writers replaced: it never calls
+    them, writes no PNG, and still writes and checks the comparison page.
+    The solves and the native phase are stand-ins here."""
+    import importlib.util
+    import types
+    plain_find = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, 'find_spec', lambda name, *a: (
+        None if name == 'matplotlib' else plain_find(name, *a)))
+    rng = np.random.default_rng(0)
+
+    class Res(types.SimpleNamespace):
+        def __getitem__(self, k):
+            return self.data[k]
+
+    def fake_solve(**kw):
+        nz1 = kw['atm'].nz + 1
+        if kw['target'] == 'flux':
+            data = {'f_down': np.full((1, 1, nz1), 1.3),
+                    'f_up': np.full((1, 1, nz1), 0.07),
+                    'f_down_direct': np.full((1, 1, nz1), 2.0 * np.cos(
+                        np.deg2rad(30.0)))}
+        else:
+            data = {'rad': rng.uniform(0.02, 0.1, (200, 200))}
+        return Res(data=data, toa=2.0, n_photon_effective=3 * kw['photons'])
+
+    def refuse(*a, **kw):
+        raise AssertionError('a PNG writer was called')
+    plain_load = chip_smoke.load_script
+
+    def load(path, name):
+        mod = plain_load(path, name)
+        mod.solver = types.SimpleNamespace(solve=fake_solve)
+        mod.plot_flux_profile = mod.quicklook_radiance = refuse
+        return mod
+    monkeypatch.setattr(chip_smoke, 'load_script', load)
+    monkeypatch.setattr(chip_smoke, 'native_phase', lambda args, dev: {})
+    monkeypatch.setattr(chip_smoke, 'captured_path', lambda name, fn: (
+        fn(None), {'phase_pair_launches': 1}, 0.0))
+    monkeypatch.setattr(chip_smoke, 'EXAMPLES_OUT', str(tmp_path))
+    monkeypatch.setattr(chip_smoke, 'EXAMPLES_REF_RUNS', {
+        '01': ((1.3, 0.07), (1.3, 0.07)), '06': ((0.06,), (0.06,))})
+    report = {}
+    args = types.SimpleNamespace(seed=0)
+    assert chip_smoke.scripts_phase(args, torch.device('cpu'), report) == 0.0
+    rep = report['scripts']
+    assert rep['matplotlib'] is False
+    assert rep['vis']['png_writers_called'] is False
+    assert rep['vis']['pngs'] == {'01_flux_clear_sky.png': 0,
+                                  '06_rad_hem.png': 0}
+    assert os.listdir(tmp_path) == ['06_rad_hem.html']

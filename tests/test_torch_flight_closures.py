@@ -144,15 +144,12 @@ def test_scalar_radiance_contraction_exact():
     np.testing.assert_allclose(img_s, img_g, rtol=2e-4, atol=1e-10)
 
 
-def test_radiance_cross_validation_native(monkeypatch, tmp_path):
-    """tests/test_cross_native.py:61-75: the native C++ solver on the JAX
-    scene, the port on the same scene carried across."""
-    from er3t_tpu import native
+def test_radiance_cross_validation_native():
+    """tests/test_cross_native.py:61-75: the native C++ solver (through the
+    port's bridge) on the JAX scene, the port on the same scene carried
+    across."""
     from er3t_tpu.rtm.scene import build_scene as jax_build_scene
-    # a private build of the native library: another test worker may be
-    # (re)building the shared one at this moment
-    monkeypatch.setattr(native, '_SO', str(tmp_path / 'libmc_ref.so'))
-    monkeypatch.setattr(native, '_lib', None)
+    from er3t_tpu_torch import native
 
     atm = atm_atmmod(np.linspace(0, 20, 21))
     ab = abs_synthetic(650.0, atm)

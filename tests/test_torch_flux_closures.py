@@ -170,14 +170,11 @@ def half_cloudy(atm20):
     return ab, scn, st
 
 
-def test_flux_cross_validation(half_cloudy, monkeypatch, tmp_path):
+def test_flux_cross_validation(half_cloudy):
     """tests/test_cross_native.py:38-58: the port's domain-average fluxes
-    against the independent native C++ solver on the same scene."""
-    from er3t_tpu import native
-    # a private build of the native library: another test worker may be
-    # (re)building the shared one at this moment
-    monkeypatch.setattr(native, '_SO', str(tmp_path / 'libmc_ref.so'))
-    monkeypatch.setattr(native, '_lib', None)
+    against the independent native C++ solver (through the port's bridge)
+    on the same scene."""
+    from er3t_tpu_torch import native
     ab, scn, st = half_cloudy
     n = 60000
     cfg = SolverConfig(target='flux', batch=1 << 12, flux_per_column=False)

@@ -1,7 +1,12 @@
 """The port never imports JAX or the JAX package, its entry points run on
 the card unless asked for the CPU, and neither chip_smoke.py nor the gather
-probes have a CPU fallback."""
+probes have a CPU fallback.  The same holds for the port's example, project
+and bin/ drivers: none loads JAX or the JAX package, and each driver's
+``--device`` defaults to the card and raises without one."""
 
+import argparse
+import importlib.machinery
+import importlib.util
 import inspect
 import os
 import subprocess
@@ -46,7 +51,33 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.sat.ahi', 'er3t_tpu_torch.sat.oco2',
                 'er3t_tpu_torch.sat.calipso', 'er3t_tpu_torch.sat.daac',
                 'er3t_tpu_torch.sat.viirs', 'er3t_tpu_torch.sat.modis',
-                'chip_smoke_files', 'chip_smoke')
+                'er3t_tpu_torch.vis', 'er3t_tpu_torch.vis.plot',
+                'er3t_tpu_torch.vis.intv', 'er3t_tpu_torch.native',
+                'chip_smoke_files', 'chip_smoke', 'chip_drivers')
+# the port's drivers, and whether each takes --device
+PORT_SCRIPTS = {'examples/00_er3t_tpu_torch.py': True,
+                'examples/01_er3t_tpu_torch_spectral.py': False,
+                'examples/02_er3t_tpu_torch_lrt_rad.py': True,
+                'projects/01_oco2_rad_sim_torch.py': True,
+                'projects/02_sat_rad_sim_torch.py': True,
+                'projects/03_spns_flux_sim_torch.py': True,
+                'projects/04_cam_nadir_rad_sim_torch.py': True,
+                'projects/05_cnn_les_factory_torch.py': True,
+                'bin/lss_torch': False, 'bin/lsa_torch': False,
+                'bin/sdown_torch': False}
+DEVICE_SCRIPTS = [p for p, dev in PORT_SCRIPTS.items() if dev]
+
+
+def load_script(path):
+    """The driver at ``path`` (relative to the repository) as a module,
+    its ``main`` not run."""
+    full = os.path.join(REPO, path)
+    name = 'script_' + os.path.basename(path).replace('.', '_')
+    loader = importlib.machinery.SourceFileLoader(name, full)
+    mod = importlib.util.module_from_spec(
+        importlib.util.spec_from_file_location(name, full, loader=loader))
+    loader.exec_module(mod)
+    return mod
 
 
 def _python(code, **env):
@@ -68,6 +99,70 @@ def test_port_and_chip_smoke_import_no_jax():
     proc = _python(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == 'clean'
+
+
+def test_scripts_import_no_jax():
+    """Every port driver, loaded as ``chip_smoke.py`` and the tests load
+    it, with the modules it imports inside its functions (the satellite
+    readers, the LUT and cloud-position apps, the O2 A-band loader and the
+    netCDF helpers) loaded too."""
+    code = ('import importlib, sys\n'
+            "sys.path.insert(0, 'tests')\n"
+            'from test_torch_imports import PORT_SCRIPTS, load_script\n'
+            'for p in PORT_SCRIPTS:\n'
+            '    load_script(p)\n'
+            "for m in ('er3t_tpu_torch.sat.oco2', 'er3t_tpu_torch.sat.ahi', "
+            "'er3t_tpu_torch.sat.viirs', 'er3t_tpu_torch.apps.lut', "
+            "'er3t_tpu_torch.apps.cldpos', 'er3t_tpu_torch.pre.abs_oco', "
+            "'er3t_tpu_torch.util.ncio'):\n"
+            '    importlib.import_module(m)\n'
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) "
+            "or m == 'er3t_tpu' or m.startswith('er3t_tpu.'))\n"
+            'assert not bad, bad\n'
+            "print('clean')\n")
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'clean'
+
+
+class _Parsed(Exception):
+    pass
+
+
+@pytest.mark.parametrize('path', DEVICE_SCRIPTS)
+def test_script_device_defaults_to_the_card(path, monkeypatch):
+    """The driver's --device, left out, asks for the card."""
+    mod = load_script(path)
+    seen = []
+    plain = argparse.ArgumentParser.parse_args
+
+    def parse(self, *a, **kw):
+        seen.append(plain(self, *a, **kw))
+        raise _Parsed
+    monkeypatch.setattr(argparse.ArgumentParser, 'parse_args', parse)
+    monkeypatch.setattr(sys, 'argv', [path])
+    with pytest.raises(_Parsed):
+        mod.main()
+    assert seen[0].device == 'cuda'
+
+
+@pytest.mark.parametrize('path', DEVICE_SCRIPTS)
+def test_script_without_a_card_raises(path, tmp_path):
+    """Run at its defaults with no card visible, the driver raises at its
+    first run on the device: nothing carries on on the CPU, and no result
+    file is written."""
+    out = ['--out', str(tmp_path / 'o.npz')] if path.startswith(
+        'projects/05') else ['--outdir', str(tmp_path)] if path.startswith(
+        'projects') else []
+    proc = subprocess.run([sys.executable, os.path.join(REPO, path), *out],
+                          cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=REPO,
+                                                CUDA_VISIBLE_DEVICES=''))
+    assert proc.returncode != 0
+    assert 'CUDA' in proc.stderr or 'cuda' in proc.stderr
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(
+        ('.npz', '.png'))]
 
 
 def test_phase11_path_loads_no_h5py(tmp_path):
@@ -145,6 +240,17 @@ def test_chip_smoke_refuses_without_cuda():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+    assert 'no CUDA device' in proc.stderr
+
+
+def test_chip_drivers_refuses_without_cuda():
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, 'chip_drivers.py'), 'p03'],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
+                           CUDA_VISIBLE_DEVICES=''),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"name"' not in proc.stdout
     assert 'no CUDA device' in proc.stderr
 
 

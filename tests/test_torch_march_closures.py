@@ -8,15 +8,16 @@ test_flux_kcross_clamp_equivalence and test_hr_fallback_has_std_and_runs
 (tests/test_solve_surface.py), test_distinct_ssa_distinct_flux
 (tests/test_aer.py) and test_flight_matches_marching
 (tests/test_constituents3d.py).  Tolerances, photon counts and ``slow``
-marks are the reference's.  The delta-Eddington and C++ references come
-from er3t_tpu (NumPy and ctypes; the port has no two-stream solver yet)."""
+marks are the reference's.  The delta-Eddington reference comes from
+er3t_tpu (NumPy), the C++ solver through the port's own bridge
+(er3t_tpu_torch.native, on the port's CPU tensors)."""
 
 import numpy as np
 import pytest
 import torch
 
-from er3t_tpu.native import mc_ref_run
 from er3t_tpu.physics import twostream
+from er3t_tpu_torch.native import mc_ref_run
 from er3t_tpu_torch.physics import rayleigh
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.aer import Aerosol1D, Aerosol3D
