@@ -164,6 +164,22 @@ Phases (any failure raises and the exit code is non-zero):
    the image's 2 x 2 block means; the cases' PNGs are written and
    checked non-empty where matplotlib is installed, and where it is not
    (the card machine) the PNG writers are never called;
+13. the measurement entry points: (a) bench_torch.main (the port of
+   bench.py) on the bench scene at a cut budget: a 1e5 warm-up, one 2e6
+   probe, three fixed chunks of 4e6 and 2 + 2 noise repeats of 1e6 (the
+   correlated runs, then 16 per-g passes a run of the reference's
+   independent protocol), with every launch count set to 0 just before
+   it and phase_pair launched once per flight step of all its runs and
+   held bitwise against its plain version on inputs captured from them:
+   its JSON line (printed as it prints it) has bench.py's keys for the
+   branch it took (BENCH_KEYS), and the domain mean of all its
+   production-config runs lies within max(1 %, 4 sigma) of the radiance
+   reference; (b) SolverConfig.ablate: 40 pinned steps (max_events) of
+   2^30 photons at 2^17 lanes under the production config with rad_w, for
+   each of full, phase, vox, deposit and vox,phase,deposit, each with
+   every launch count set to 0 just before it: phase_pair launched once a
+   step (held bitwise on captured steps), and not at all under 'phase';
+   every image finite; ms per step printed;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -191,9 +207,9 @@ The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
 build/chip_smoke.json (phase 8 under "march" and "quasi", phase 9 under
 "dist", phase 10 under "apps", phase 11 under "sat", phase 12 under
-"scripts"; the input files of phases 10 and 11 go to build/phase10/ and
-build/phase11/).  With --profile, 20 radiance steps and 20 flux steps
-are profiled (keys "profile" and "profile_flux").
+"scripts", phase 13 under "bench"; the input files of phases 10 and 11 go
+to build/phase10/ and build/phase11/).  With --profile, 20 radiance steps
+and 20 flux steps are profiled (keys "profile" and "profile_flux").
 """
 
 import argparse
@@ -211,6 +227,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+import bench_torch
 import chip_smoke_files
 from er3t_tpu_torch import _build, native, vis
 from er3t_tpu_torch.apps.lut import (func_ref_vs_cot,
@@ -223,7 +240,7 @@ from er3t_tpu_torch.pre.abs_16g_db import abs_16g_from_txt
 from er3t_tpu_torch.pre.abs_gen import gen_abs_16g_h5
 from er3t_tpu_torch.pre.aer import aer_les
 from er3t_tpu_torch.pre.atm import atm_atmmod
-from er3t_tpu_torch.pre.cld import cld_gen_hem, cld_gen_hom, cld_les, cld_sat
+from er3t_tpu_torch.pre.cld import cld_gen_hom, cld_les, cld_sat
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
@@ -767,6 +784,28 @@ KNOBS = {'cf_dtau': dict(cf_dtau=0.5), 'split_wmax': dict(split_wmax=0.5),
          'rr_value': dict(rr_value=0.1),
          'sort_coherent': dict(sort_every=8, launch_coherent=True),
          'production': {}}
+# the keys of bench.py's printed line (bench.py:234-268) in its two
+# branches: the noise phase ran; the run was degraded (the noise phase
+# skipped).  tests/test_torch_bench.py reads them from bench.py's source.
+_BENCH_OUT = ('unit', 'photons_per_sec', 'g_samples_per_sec', 'healthy',
+              'probe_rate', 'chunk_rates', 'median', 'median_all_chunks',
+              'best', 'slow_chunks', 'vs_baseline_all')
+BENCH_KEYS = {
+    'noise': _BENCH_OUT + ('metric', 'value', 'vs_baseline',
+                           'noise_var_ratio_indep_over_corr',
+                           'pixel_std_at_budget'),
+    'degraded': _BENCH_OUT + ('degraded', 'metric', 'value', 'vs_baseline'),
+}
+# phase 13 (a): bench_torch.main's budgets, cut: three fixed chunks
+# (max_chunks, the chunk's bounds at the chunk, a target far above the
+# chunks' wall) and 2 + 2 noise repeats
+BENCH_BUDGET = dict(warmup=100_000, probe=2_000_000, chunk=4_000_000,
+                    chunk_min=4_000_000, chunk_max=4_000_000,
+                    target_seconds=3600.0, max_chunks=3, repeats=2,
+                    n_noise=1_000_000, n_ind=1_000_000)
+ABLATE_STEPS = 40                # phase 13 (b): pinned steps a config
+ABLATIONS = {'full': '', 'phase': 'phase', 'vox': 'vox',
+             'deposit': 'deposit', 'floor': 'vox,phase,deposit'}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, HBM3
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 outside the
                                  # tensor cores
@@ -782,16 +821,9 @@ def check(ok, what):
 
 
 def build_bench_scene(device):
-    """The bench.py scene (bench.py:66-81) through the port."""
-    levels = np.concatenate([np.arange(0, 3.0, 0.5), np.arange(3.0, 20.1, 1.0)])
-    atm = atm_atmmod(levels)
-    ab = abs_synthetic(650.0, atm)
-    cld = cld_gen_hem(nx=480, ny=480, nz=4, dx=0.1, dy=0.1, dz=0.5,
-                      cloud_frac_tgt=0.25, radii=(0.5, 1.0, 2.0),
-                      cot_scale=15.0, cloud_base=0.5, seed=7)
-    pha = pha_mie_wc(650.0)
-    kw = dict(cld=cld, pha=pha, surface=0.03, solar_zenith_angle=30.0,
-              solar_azimuth_angle=45.0, forward_trunc_deg=25.0)
+    """The bench.py scene (bench.py:66-81) through the port
+    (bench_torch.scene_inputs)."""
+    atm, ab, kw = bench_torch.scene_inputs()
     scene, st = build_scene(atm, ab, **kw, device=device)
     return atm, ab, kw, scene, st
 
@@ -1057,7 +1089,19 @@ def main():
     return run(args, torch.device('cuda', 0))
 
 
-def run(args, dev):
+PHASES = ('solve', 'independent', 'flux', 'modes', 'march', 'dist', 'apps',
+          'sat', 'scripts', 'bench', 'probes')
+
+
+def run(args, dev, phases=PHASES):
+    """The smoke run (see the module docstring).  Phases 1-4 always run;
+    ``phases`` names the others to run (5, 5b, 4b, 7-13 and 6, in the
+    order of PHASES), all of them by default.  The tests rehearse them a
+    few at a time; 'independent' needs 'solve'."""
+    phases = set(phases)
+    check(phases <= set(PHASES), f'unknown phases {phases - set(PHASES)}')
+    check('solve' in phases or 'independent' not in phases,
+          "phase 'independent' needs phase 'solve'")
     # f32 matmuls and convolutions in full f32 (the absorption matmul)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1201,50 +1245,119 @@ def run(args, dev):
         report['profile'] = profile_steps(scene, st, cfg, dev, rad_w=rad_w)
 
     # ---- 5. front door ----
-    t0 = time.perf_counter()
-    res = solve(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
-                photons=SOLVE_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
-                qmc_launch=True, n_scat_max=600, seed=args.seed + 3,
-                device=dev)
-    rad = np.asarray(res['rad'])
-    check(rad.shape == (st.nx, st.ny) and np.isfinite(rad).all(),
-          'solve: rad not a finite (nx, ny) image')
-    check(res.toa == toa, f'solve: toa {res.toa} != {toa}')
-    report['solve'] = dict(wall_s=time.perf_counter() - t0,
-                           domain_mean=float(rad.mean()),
-                           n_photon_effective=res.n_photon_effective)
-    log('# solve: ' + json.dumps(report['solve']))
+    if 'solve' in phases:
+        t0 = time.perf_counter()
+        res = solve(atm=atm, abs_coef=ab, **scene_kw, target='radiance',
+                    photons=SOLVE_PHOTONS, n_run=2, batch=BATCH,
+                    tile_size=16, qmc_launch=True, n_scat_max=600,
+                    seed=args.seed + 3, device=dev)
+        rad = np.asarray(res['rad'])
+        check(rad.shape == (st.nx, st.ny) and np.isfinite(rad).all(),
+              'solve: rad not a finite (nx, ny) image')
+        check(res.toa == toa, f'solve: toa {res.toa} != {toa}')
+        report['solve'] = dict(wall_s=time.perf_counter() - t0,
+                               domain_mean=float(rad.mean()),
+                               n_photon_effective=res.n_photon_effective)
+        log('# solve: ' + json.dumps(report['solve']))
 
     # ---- 5b. independent g-points ----
-    independent_phase(args, dev, atm, ab, scene_kw, st, res, report)
+    if 'independent' in phases:
+        independent_phase(args, dev, atm, ab, scene_kw, st, res, report)
 
     # ---- 4b. flux path ----
-    flux_phase(args, dev, atm, ab, scene_kw, scene, st, report)
+    if 'flux' in phases:
+        flux_phase(args, dev, atm, ab, scene_kw, scene, st, report)
 
     # ---- 7. the other solvers, sensors and knobs ----
-    max_err = max(max_err, modes_phase(args, dev, atm, ab, scene_kw, scene,
-                                       st, report))
+    if 'modes' in phases:
+        max_err = max(max_err, modes_phase(args, dev, atm, ab, scene_kw,
+                                           scene, st, report))
 
     # ---- 8. the marching engine and the quasi renderer ----
-    max_err = max(max_err, march_phase(args, dev, atm, ab, scene_kw, scene,
-                                       st, report))
-    quasi_phase(dev, ab, scene, st, report)
+    if 'march' in phases:
+        max_err = max(max_err, march_phase(args, dev, atm, ab, scene_kw,
+                                           scene, st, report))
+        quasi_phase(dev, ab, scene, st, report)
 
     # ---- 9. multi-device transport ----
-    max_err = max(max_err, dist_phase(args, dev, atm, ab, scene_kw, scene,
-                                      st, report))
+    if 'dist' in phases:
+        max_err = max(max_err, dist_phase(args, dev, atm, ab, scene_kw,
+                                          scene, st, report))
 
     # ---- 10. the application layer ----
-    max_err = max(max_err, apps_phase(
-        args, dev, scene_kw.get('pha') or pha_mie_wc(650.0), report))
+    if 'apps' in phases:
+        max_err = max(max_err, apps_phase(
+            args, dev, scene_kw.get('pha') or pha_mie_wc(650.0), report))
 
     # ---- 11. the satellite layer ----
-    max_err = max(max_err, sat_phase(args, dev, report))
+    if 'sat' in phases:
+        max_err = max(max_err, sat_phase(args, dev, report))
 
     # ---- 12. the native bridge, the example driver and vis ----
-    max_err = max(max_err, scripts_phase(args, dev, report))
+    if 'scripts' in phases:
+        max_err = max(max_err, scripts_phase(args, dev, report))
+
+    # ---- 13. the measurement entry points: bench_torch, ablate ----
+    if 'bench' in phases:
+        max_err = max(max_err, bench_phase(args, dev, ab, scene, st, report))
 
     # ---- 6. probe phase ----
+    probe_counts, probe_err, probe_kt = {}, {}, {}
+    if 'probes' in phases:
+        probe_counts, probe_err, probe_kt = probe_phase(args, dev, rng,
+                                                        floor_ms, rows,
+                                                        report)
+    report['rows'] = rows
+
+    def entry(name, source, replaces, n, err, t):
+        return dict(name=name, route='cuda', source=source,
+                    replaces=replaces, launches=n, max_abs_err=err,
+                    ms=t['ms'], plain_ms=t['plain_ms'],
+                    bound_ms=t['bound_ms'], bound_by=t['bound_by'],
+                    library_ms=t['library_ms'], floor_ms=t['floor_ms'])
+    pp_entry = entry('phase_pair', PP_SOURCE, PP_REPLACES, launches, max_err,
+                     kt['bench_tables'])
+    if 'flux' in phases:
+        pp_entry['flux_launches'] = report['flux']['phase_pair_launches']
+    for name, rec in {**report.get('modes', {}),
+                      **report.get('march', {})}.items():
+        pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
+    for name, rec in report.get('dist', {}).items():
+        pp_entry[f'dist_{name}_launches'] = rec['phase_pair_launches']
+    for name, rec in report.get('apps', {}).items():
+        pp_entry[f'apps_{name}_launches'] = rec['phase_pair_launches']
+    if 'sat' in phases:
+        for name in ('3d', 'ipa'):
+            pp_entry[f'sat_{name}_launches'] = \
+                report['sat'][name]['phase_pair_launches']
+    if 'scripts' in phases:
+        for case in ('01', '06'):
+            pp_entry[f'examples_{case}_launches'] = \
+                report['scripts'][f'example_{case}']['phase_pair_launches']
+    for name, rec in report.get('bench', {}).items():
+        pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
+    kernels = {'kernels': [pp_entry] + [
+        entry(name, source, replaces, probe_counts[name], probe_err[name],
+              probe_kt[name]) for name, (source, replaces)
+        in PROBE_KERNELS.items() if name in probe_kt]}
+    report['kernels'] = kernels
+    os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)
+    with open(OUT_JSON, 'w') as f:
+        json.dump(report, f, indent=1)
+    print(card)
+    print(json.dumps(kernels))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind,
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def probe_phase(args, dev, rng, floor_ms, rows, report):
+    """Phase 6: every probe kernel against its plain version on its cases,
+    timed beside it (rows gains their PERF.md rows), then the probe path
+    with the launch counts from 0 (see the module docstring).  Returns the
+    probe path's launch counts, each kernel's largest |kernel - plain| and
+    its timed case."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     probe_err = dict.fromkeys(PROBE_KERNELS, 0.0)
@@ -1260,7 +1373,7 @@ def run(args, dev):
             t = rows[c['row']] = dict(kernel=kernel, **time_case(c, floor_ms))
             probe_kt.setdefault(kernel, t)
         log(f'# {kernel} {c["case"]}: bitwise equal; {t}')
-    report.update(probe_kernels=probe_kt, rows=rows)
+    report['probe_kernels'] = probe_kt
 
     # the probe path, its launch counts from 0
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
@@ -1284,41 +1397,7 @@ def run(args, dev):
           f'shared memory ceiling {ceiling[-2:]} is not the opt-in limit '
           f'{limit} B')
 
-    def entry(name, source, replaces, n, err, t):
-        return dict(name=name, route='cuda', source=source,
-                    replaces=replaces, launches=n, max_abs_err=err,
-                    ms=t['ms'], plain_ms=t['plain_ms'],
-                    bound_ms=t['bound_ms'], bound_by=t['bound_by'],
-                    library_ms=t['library_ms'], floor_ms=t['floor_ms'])
-    pp_entry = entry('phase_pair', PP_SOURCE, PP_REPLACES, launches, max_err,
-                     kt['bench_tables'])
-    pp_entry['flux_launches'] = report['flux']['phase_pair_launches']
-    for name, rec in {**report['modes'], **report['march']}.items():
-        pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
-    for name, rec in report['dist'].items():
-        pp_entry[f'dist_{name}_launches'] = rec['phase_pair_launches']
-    for name, rec in report['apps'].items():
-        pp_entry[f'apps_{name}_launches'] = rec['phase_pair_launches']
-    for name in ('3d', 'ipa'):
-        pp_entry[f'sat_{name}_launches'] = \
-            report['sat'][name]['phase_pair_launches']
-    for case in ('01', '06'):
-        pp_entry[f'examples_{case}_launches'] = \
-            report['scripts'][f'example_{case}']['phase_pair_launches']
-    kernels = {'kernels': [pp_entry] + [
-        entry(name, source, replaces, probe_counts[name], probe_err[name],
-              probe_kt[name])
-        for name, (source, replaces) in PROBE_KERNELS.items()]}
-    report['kernels'] = kernels
-    os.makedirs(os.path.dirname(OUT_JSON), exist_ok=True)
-    with open(OUT_JSON, 'w') as f:
-        json.dump(report, f, indent=1)
-    print(card)
-    print(json.dumps(kernels))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': kind,
-        'count': torch.cuda.device_count()}}))
-    return 0
+    return probe_counts, probe_err, probe_kt
 
 
 def independent_phase(args, dev, atm, ab, scene_kw, st, corr, report):
@@ -1461,18 +1540,22 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     log('# heating rate: ' + json.dumps(report['heating_rate']))
 
 
-def path_run(name, fn, entry='run_transport_flight'):
+def path_run(name, fn, entry='run_transport_flight', module=solver,
+             k1=True):
     """Run ``fn(run)`` with every launch count set to 0 just before, where
-    ``run`` is the solver's ``entry`` (run_transport_flight, or the
-    marching engine's run_transport) with each pass timed (solve's passes
-    go through it too).  Checks that phase_pair, and no other kernel,
-    launched once per step, and that no marching pass ended at its step
-    cap; logs and returns (fn's result, a record of the wall, steps,
-    photons, photons/s, lane iterations per photon, launch counts and
-    passes, each marching pass with its cap, each flight pass with its
-    cap and the lanes still in flight when it ended)."""
+    ``run`` is ``module``'s ``entry`` (the solver's run_transport_flight,
+    or the marching engine's run_transport; mc_flight's
+    run_transport_flight for phase 13) with each pass timed (the passes of
+    solve, or of whatever calls ``module.entry``, go through it too).
+    Checks that phase_pair (not at all without ``k1``: the 'phase'
+    ablation), and no other kernel, launched once per step, and that no
+    marching pass ended at its step cap; logs and returns (fn's result, a
+    record of the wall, steps, photons, photons/s, lane iterations per
+    photon, launch counts and passes, each marching pass with its cap,
+    each flight pass with its cap and the lanes still in flight when it
+    ended)."""
     passes = []
-    engine = getattr(solver, entry)
+    engine = getattr(module, entry)
     marching = entry == 'run_transport'
 
     def timed(*a, **kw):
@@ -1491,18 +1574,18 @@ def path_run(name, fn, entry='run_transport_flight'):
         return tal
     reset_counts()
     torch.cuda.synchronize()
-    setattr(solver, entry, timed)
+    setattr(module, entry, timed)
     try:
         t0 = time.perf_counter()
         out = fn(timed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        setattr(solver, entry, engine)
+        setattr(module, entry, engine)
     counts = launch_counts()
     steps = sum(p['steps'] for p in passes)
     photons = sum(p['photons'] for p in passes)
-    check(steps > 0 and counts['phase_pair'] == steps,
+    check(steps > 0 and counts['phase_pair'] == (steps if k1 else 0),
           f'{name}: phase_pair launched {counts["phase_pair"]} times in '
           f'{steps} steps')
     check(all(n == 0 for k, n in counts.items() if k != 'phase_pair'),
@@ -2000,16 +2083,17 @@ def pair_capture(captured, seen, per_table=2, every=25):
     return capture
 
 
-def captured_path(name, fn):
-    """path_run(name, fn) with the phase-pair inputs captured (pair_capture);
-    holds the kernel bitwise against its plain version on each capture and
-    returns (fn's result, the record with the number of phase tables the
-    path ran and their shapes, the largest |kernel - plain|)."""
+def captured_path(name, fn, **kw):
+    """path_run(name, fn, **kw) with the phase-pair inputs captured
+    (pair_capture); holds the kernel bitwise against its plain version on
+    each capture and returns (fn's result, the record with the number of
+    phase tables the path ran and their shapes, the largest |kernel -
+    plain|)."""
     captured, seen = [], []
     plain = mc_flight.phase_pair
     mc_flight.phase_pair = pair_capture(captured, seen)
     try:
-        out, rec = path_run(name, fn)
+        out, rec = path_run(name, fn, **kw)
     finally:
         mc_flight.phase_pair = plain
     err = 0.0
@@ -2511,6 +2595,83 @@ def quasi_phase(dev, ab, scene, st, report):
         check(abs(rel[worst]) <= QUASI_RTOL,
               f'quasi {name}: {quasi[name]["worst"]} off the JAX reference '
               f'by {rel[worst]:.3g} (bound {QUASI_RTOL})')
+
+
+def bench_phase(args, dev, ab, scene, st, report):
+    """Phase 13: bench_torch.main at a cut budget (BENCH_BUDGET) on the
+    bench scene, then the ablation stand-ins of SolverConfig.ablate at
+    ABLATE_STEPS pinned steps (see the module docstring).  Returns the
+    largest phase_pair |kernel - plain| on the captured inputs."""
+    rep = report['bench'] = {}
+    mu0 = float(np.cos(np.deg2rad(30.0)))
+    plain_build = bench_torch.build
+    kept = []                 # the production-config runs' tallies
+
+    def bench(run):
+        def keep(*a, **kw):
+            tal = run(*a, **kw)
+            if a[2].qmc_launch:
+                kept.append((tal.rad.cpu().numpy().astype(np.float64),
+                             int(tal.n_launched)))
+            return tal
+        mc_flight.run_transport_flight = keep
+        try:
+            return bench_torch.main(device=dev, **BENCH_BUDGET)
+        finally:
+            mc_flight.run_transport_flight = run
+    # the scene built above (bench_torch builds the same one)
+    bench_torch.build = lambda device: (ab, scene, st)
+    try:
+        out, rec, err = captured_path('phase 13 bench', bench,
+                                      module=mc_flight)
+    finally:
+        bench_torch.build = plain_build
+    noise = 'noise_var_ratio_indep_over_corr' in out
+    keys = set(BENCH_KEYS['noise' if noise else 'degraded'])
+    if not noise and out['healthy']:
+        keys.discard('degraded')     # healthy, but the noise phase skipped
+    check(set(out) == keys, f'bench_torch line: keys {sorted(out)} are not '
+                            f"bench.py's {sorted(keys)}")
+    budget = BENCH_BUDGET
+    n_corr = budget['warmup'] + budget['probe'] + budget['max_chunks'] \
+        * budget['chunk'] + (budget['repeats'] * budget['n_noise']
+                             if noise else 0)
+    n_l = sum(n for _, n in kept)
+    check(n_l == n_corr, f'bench: {n_l} production-config photons, not '
+                         f'{n_corr}')
+    img = sum(im for im, _ in kept)
+    mean = float(reduce_radiance(img, n_l, ab, mu0,
+                                 precontracted=True)['rad'].mean())
+    rec.update(line=out, branch='noise' if noise else 'degraded',
+               domain_mean=against_ref('bench domain-mean radiance', mean,
+                                       REF_RUN_MEANS, REF_PHOTONS, n_l,
+                                       0.01))
+    rep['bench'] = rec
+
+    # (b) the ablation stand-ins at pinned steps
+    factors, _ = spectral_factors(ab, nz_out=1)
+    for name, ablate in ABLATIONS.items():
+        cfg = SolverConfig(target='radiance', batch=BATCH, n_scat_max=600,
+                           tile_size=16, use_pallas=True,
+                           max_events=ABLATE_STEPS, ablate=ablate)
+        tal, r, e = captured_path(
+            f'phase 13 ablate {name}', lambda run: run(
+                scene, st, cfg, 1 << 30, args.seed + 40, dev,
+                rad_w=factors[0]),
+            module=mc_flight, k1='phase' not in ablate)
+        err = max(err, e)
+        check(r['steps'] == ABLATE_STEPS, f'ablate {name}: {r["steps"]} '
+                                          f'steps, not {ABLATE_STEPS}')
+        check(bool(torch.isfinite(tal.rad).all()),
+              f'ablate {name}: image not finite')
+        r['ms_per_step'] = 1e3 * r['passes'][0]['wall_s'] / r['steps']
+        rep[f'ablate_{name}'] = r
+    log('# phase 13: ' + json.dumps(
+        {k: {kk: vv for kk, vv in v.items()
+             if kk in ('wall_s', 'steps', 'photons_per_s', 'ms_per_step',
+                       'phase_pair_launches', 'branch', 'domain_mean')}
+         for k, v in rep.items()}))
+    return err
 
 
 def profile_steps(scene, st, cfg, dev, rad_w=None, flux_w=None):

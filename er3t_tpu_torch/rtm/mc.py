@@ -1,10 +1,10 @@
 """Solver configuration, tallies and the event-marching engine (port of
 ``er3t_tpu/rtm/mc.py``).
 
-``SolverConfig`` keeps the reference's fields, defaults and frozen-dataclass
-form, so one set of keyword arguments configures both packages; only the
-profiling knob ``ablate`` is left out.  The field docs are abridged here —
-the reference module carries the full notes.
+``SolverConfig`` keeps the reference's fields, defaults, order and
+frozen-dataclass form, so one set of keyword arguments configures both
+packages.  The field docs are abridged here — the reference module carries
+the full notes.
 
 :func:`transport` is the reference's event-marching engine (:288-686): each
 step advances every lane to the nearer of its next tentative collision
@@ -88,6 +88,15 @@ class SolverConfig:
     drain_compact: bool = True         # compact survivors into B/8, B/64
     #                                     batches once the budget is launched
     sort_every: int = 0                # >0: periodic lane re-sort
+    ablate: str = ''                   # profiling only: a comma-joined
+    #                                     subset of {'vox', 'phase',
+    #                                     'deposit', 'firstdep'}; the flight
+    #                                     kernel replaces that gather or
+    #                                     scatter by a stand-in ('firstdep'
+    #                                     drops first-order radiance
+    #                                     deposits, a biased diagnostic);
+    #                                     the marching engine ignores it.
+    #                                     NEVER use for physics
 
 
 class Tallies(NamedTuple):

@@ -40,8 +40,10 @@ launch), pathlength tallies, 3D, IPA and partial-3D (``p3d_order``)
 transport, ``tile_size``, ``qmc_launch`` and ``launch_coherent``,
 ``rad_w``, collision forcing (``cf_dtau``), splitting (``split_wmax``),
 Russian roulette (``rr_wmin``, ``rr_value``), ``sort_every``, ``n_scat_max``,
-``max_events`` and ``drain_compact``, and the x-slab branch (``slab``,
-``x_off``, ``spawn_reserve``).  ``cfg.flux_engine`` is ignored here,
+``max_events`` and ``drain_compact``, the x-slab branch (``slab``,
+``x_off``, ``spawn_reserve``), and the profiling stand-ins of
+``cfg.ablate`` at the reference's sites (under ``'phase'`` the phase-pair
+kernel is not launched).  ``cfg.flux_engine`` is ignored here,
 as in the reference's ``run_transport_flight``: the solver sends
 ``flux_engine='marching'`` flux runs to :func:`~.mc.run_transport`.
 """
@@ -213,6 +215,8 @@ class FlightKernel:
                  spawn_reserve: int = 0):
         self.scene, self.st, self.cfg = scene, st, cfg
         self.n_photon = int(n_photon)
+        # profiling stand-ins (reference :310): see SolverConfig.ablate
+        self.ablate = set(cfg.ablate.split(',')) if cfg.ablate else set()
         dev = self.device = scene.z_lev.device
         nz, ng = st.nz, st.ng
         # under a slab st.nx is the slab's width; coordinates wrap on the
@@ -929,7 +933,12 @@ class FlightKernel:
             in3 = (l_col >= st.iz3l) & (l_col < st.iz3l + st.nz3)
         else:
             in3 = torch.zeros_like(active)
-        vt = self.vox[(ix.long() * st.ny + iy) * st.nz3 + k3].T  # (3+3Ns3, B)
+        if 'vox' in self.ablate:
+            # profiling (reference :968-969): the first voxel row for all
+            vt = self.vox[0][:, None].expand(-1, x.shape[0])
+        else:
+            vt = self.vox[(ix.long() * st.ny + iy) * st.nz3 + k3].T
+        # vt: (3+3Ns3, B)
         ext_c = torch.where(in3, vt[0], 0.0)
 
         z_hi_col = z_lev[1:][l_col]
@@ -1000,9 +1009,15 @@ class FlightKernel:
             mu_sc = ux * wsx_c + uy * wsy_c + uz * wsz_c
         else:
             mu_sc = ux * sx + uy * sy + uz * mu_s
-        row_e = apf + direct.to(_I) * self.n_pf
-        pe_pair, mu_new = phase_pair(apf, row_e, mu_sc, u[5].contiguous(),
-                                     self.pt_p, self.pt_mu)
+        if 'phase' in self.ablate:
+            # profiling (reference :348-349, 357-358, 1051): the Rayleigh
+            # evaluation and a uniform cosine; the kernel is not launched
+            pe_pair, mu_new = 0.75 * (1.0 + mu_sc * mu_sc), u[5] * 2.0 - 1.0
+        else:
+            row_e = apf + direct.to(_I) * self.n_pf
+            pe_pair, mu_new = phase_pair(apf, row_e, mu_sc,
+                                         u[5].contiguous(), self.pt_p,
+                                         self.pt_mu)
 
         # ---------------- local estimates ----------------
         if self.uniform_sfc:
@@ -1056,6 +1071,10 @@ class FlightKernel:
                 if cfg.pathlength:
                     # the path so far plus the slant exit path toward TOA
                     pl_det = plen + (self.z_top - z) / mu_s
+            if 'firstdep' in self.ablate:
+                # diagnostic (reference :1155-1159): first-order deposits
+                # dropped; BIASED, never physics
+                contrib = torch.where(direct[None, :], 0.0, contrib)
             if self.scalar_rad:
                 contrib = self.rad_w @ contrib                   # (B,)
             if self.nxr * self.nyr == 1:
@@ -1063,8 +1082,13 @@ class FlightKernel:
                 if cfg.pathlength:
                     rad_pl += torch.sum(contrib * pl_det[None, :], dim=-1)
             else:
-                rad.index_add_(0, pidx,
-                               contrib if self.scalar_rad else contrib.T)
+                if 'deposit' in self.ablate:
+                    # profiling (reference :1202-1206): no image scatter;
+                    # the deposits' sum added to every pixel keeps them live
+                    rad += torch.sum(contrib)
+                else:
+                    rad.index_add_(0, pidx,
+                                   contrib if self.scalar_rad else contrib.T)
                 if cfg.pathlength:
                     rad_pl.index_add_(0, pidx, (contrib * pl_det[None, :]).T)
         if self.tally_absorbed:

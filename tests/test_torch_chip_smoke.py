@@ -5,7 +5,13 @@ wrapper is wrapped so that its plain-version call counts as a launch (on
 the CPU a wrapper runs its plain version and counts nothing).  What is
 checked is the script's control flow and its output: the contract's last
 two lines, every kernel's keys (floor, bound, library time), and the
-launch counts of the main path and of the probe path.  Phase 8's quasi
+launch counts of the main path and of the probe path.  Each test runs a
+few phases (``chip_smoke.run(..., phases=)``): this file phases 1-7 and
+the probes; tests/test_torch_chip_smoke_paths.py phases 8-9,
+tests/test_torch_chip_smoke_apps.py phases 10-11,
+tests/test_torch_chip_smoke_drivers.py phase 12 and
+tests/test_torch_chip_smoke_bench.py phase 13, with the fixture and the
+checks of this file, so that the test workers share them.  Phase 8's quasi
 renders are held against the JAX package's on the same small scene, and
 phase 11's reader and cloud values (the AHI granule gridded to 12 x 12)
 against the JAX package's on the same file, exactly.  Phase 12 runs
@@ -14,6 +20,8 @@ at 80000 photons, each solver held against the others at the reference
 test's bounds.
 """
 
+import ast
+import inspect
 import json
 import os
 
@@ -45,6 +53,8 @@ PHASE9 = ('photon', 'decomp', 'flux', 'solve', 'process_group')
 PHASE10 = ('les', 'lut', 'curve', 'spectral_flux')
 PHASE11 = ('3d', 'ipa')
 PHASE12 = ('01', '06')
+PHASE13 = ('bench', 'ablate_full', 'ablate_phase', 'ablate_vox',
+           'ablate_deposit', 'ablate_floor')
 
 
 def _small_scene(device):
@@ -124,26 +134,24 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, 'load', lambda name: None)
     # the reference runs of the bench scene, replaced by a spread that
     # admits the 12x12 scene's means
-    wide = ((0.0, 0.0), (100.0, 100.0))
-    wide_plen = ((0.0, 0.0), (100.0, 1e7))
     for name, value in (('BATCH', 1024), ('RAGGED', 1003),
                         ('PHOTONS', 20_000), ('WARM_PHOTONS', 4_000),
                         ('SOLVE_PHOTONS', 4_000), ('INDEP_PHOTONS', 8_000),
                         ('FLUX_PHOTONS', 20_000),
-                        ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', wide),
-                        ('MODES_PHOTONS', 6_000), ('IPA_FLUX_REF_RUNS', wide),
+                        ('HR_PHOTONS', 10_000), ('FLUX_REF_RUNS', WIDE),
+                        ('MODES_PHOTONS', 6_000), ('IPA_FLUX_REF_RUNS', WIDE),
                         ('MARCH_PHOTONS', 6_000),
                         ('DIST_RANKS', 2), ('DIST_PHOTONS', 8_000),
                         ('DIST_FLUX_PHOTONS', 8_000),
                         ('DIST_SOLVE_PHOTONS', 4_000),
-                        ('MARCH_FLUX_REF_RUNS', wide),
-                        ('MARCH_RAD_REF_RUNS', tuple(r[0] for r in wide)),
-                        ('MARCH_HR_REF_RUNS', tuple(r[0] for r in wide)),
+                        ('MARCH_FLUX_REF_RUNS', WIDE),
+                        ('MARCH_RAD_REF_RUNS', tuple(r[0] for r in WIDE)),
+                        ('MARCH_HR_REF_RUNS', tuple(r[0] for r in WIDE)),
                         ('QUASI_NPIX', 16), ('QUASI_STEPS', 48),
                         ('MODES_REF_RUNS', dict.fromkeys(
-                            chip_smoke.MODES_REF_RUNS, wide_plen)),
-                        ('REF_RUN_MEANS', tuple(r[0] for r in wide)),
-                        ('HR_REF_RUNS', tuple(r[0] for r in wide)),
+                            chip_smoke.MODES_REF_RUNS, WIDE_PLEN)),
+                        ('REF_RUN_MEANS', tuple(r[0] for r in WIDE)),
+                        ('HR_REF_RUNS', tuple(r[0] for r in WIDE)),
                         ('OUT_JSON', str(tmp_path / 'chip_smoke.json')),
                         ('build_bench_scene', _small_scene),
                         ('APPS_LES_SHAPE', (12, 12, 60)),
@@ -151,19 +159,17 @@ def rehearsal(monkeypatch, tmp_path):
                         ('APPS_LUT_PHOTONS', 8_000),
                         ('APPS_CURVE_PHOTONS', 8_000),
                         ('APPS_FLUX_PHOTONS', 20_000),
-                        ('APPS_LES_REF_RUNS', tuple(r[0] for r in wide)),
-                        ('APPS_LUT_REF_RUNS', ((wide[0][:1] * 5,) * 2,
-                                               (wide[1][:1] * 5,) * 2)),
-                        ('APPS_CURVE_REF_RUNS', tuple(r[0] for r in wide)),
+                        ('APPS_LES_REF_RUNS', tuple(r[0] for r in WIDE)),
+                        ('APPS_LUT_REF_RUNS', ((WIDE[0][:1] * 5,) * 2,
+                                               (WIDE[1][:1] * 5,) * 2)),
+                        ('APPS_CURVE_REF_RUNS', tuple(r[0] for r in WIDE)),
                         ('SAT_NX', 12), ('SAT_PHOTONS', 6_000),
                         ('SAT_REF_RUNS', dict.fromkeys(PHASE11, (
                             (0.0,) * 3, (100.0,) * 3))),
-                        ('SAT_EXACT', _sat_exact(
-                            str(tmp_path / 'sat_ref.nc'), 12)),
                         ('NATIVE_PHOTONS', 80_000),
                         ('EXAMPLES_PHOTONS', 4_000),
                         ('EXAMPLES_REF_RUNS', {
-                            '01': wide, '06': tuple(r[:1] for r in wide)}),
+                            '01': WIDE, '06': tuple(r[:1] for r in WIDE)}),
                         ('EXAMPLES_OUT', str(tmp_path / 'phase12'))):
         monkeypatch.setattr(chip_smoke, name, value)
     # one Mie table a wavelength for the whole rehearsal (phase 10 asks
@@ -178,8 +184,6 @@ def rehearsal(monkeypatch, tmp_path):
         return mie[key]
     monkeypatch.setattr(pha, 'pha_mie_wc', mie_once)
     monkeypatch.setattr(chip_smoke, 'pha_mie_wc', mie_once)
-    monkeypatch.setattr(chip_smoke, 'QUASI_REF', _quasi_ref(
-        chip_smoke.QUASI_NPIX, chip_smoke.QUASI_STEPS))
     monkeypatch.setattr(gather_probe, 'B', 1024)
     monkeypatch.setattr(gather_probe, 'K', 2)
 
@@ -206,22 +210,83 @@ def rehearsal(monkeypatch, tmp_path):
     return tmp_path
 
 
-def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
+WIDE = ((0.0, 0.0), (100.0, 100.0))
+WIDE_PLEN = ((0.0, 0.0), (100.0, 1e7))
+
+
+def k1_keys(phases):
+    """The per-path launch keys that ``phases`` add to the phase-pair
+    kernel's entry of the kernels line."""
+    keys = set()
+    if 'flux' in phases:
+        keys |= {'flux_launches'}
+    if 'modes' in phases:
+        keys |= {f'{m}_launches' for m in PHASE7}
+    if 'march' in phases:
+        keys |= {f'{m}_launches' for m in PHASE8}
+    if 'dist' in phases:
+        keys |= {f'dist_{m}_launches' for m in PHASE9}
+    if 'apps' in phases:
+        keys |= {f'apps_{m}_launches' for m in PHASE10}
+    if 'sat' in phases:
+        keys |= {f'sat_{m}_launches' for m in PHASE11}
+    if 'scripts' in phases:
+        keys |= {f'examples_{m}_launches' for m in PHASE12}
+    if 'bench' in phases:
+        keys |= {f'{m}_launches' for m in PHASE13}
+    return keys
+
+
+def rehearse(rehearsal, capsys, phases, monkeypatch=None):
+    """chip_smoke.run with ``phases`` (and phases 1-4) on the CPU; checks
+    the contract's last three lines, the main path, and every kernel's
+    keys for those phases.  Returns (the printed lines, the report, the
+    kernels line)."""
+    if 'march' in phases:
+        monkeypatch.setattr(chip_smoke, 'QUASI_REF', _quasi_ref(
+            chip_smoke.QUASI_NPIX, chip_smoke.QUASI_STEPS))
+    if 'sat' in phases:
+        monkeypatch.setattr(chip_smoke, 'SAT_EXACT', _sat_exact(
+            str(rehearsal / 'sat_ref.nc'), 12))
     args = type('A', (), {'seed': 0, 'profile': False})()
-    assert chip_smoke.run(args, torch.device('cpu')) == 0
+    assert chip_smoke.run(args, torch.device('cpu'), phases=phases) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == {'ok': True, 'device': {
         'platform': 'gpu', 'kind': 'cpu', 'count': 1}}
     assert lines[-3] == 'CPU stub, 0 W'
     kernels = json.loads(lines[-2])['kernels']
-    assert [k['name'] for k in kernels] == ['phase_pair'] + list(
-        chip_smoke.PROBE_KERNELS)
     report = json.loads((rehearsal / 'chip_smoke.json').read_text())
     main = report['main']
     assert report['floor_ms'] == 1.0
     assert main['phase_pair_launches'] == main['steps'] > 0
     assert all(n == 0 for k, n in main['launches'].items()
                if k != 'phase_pair')
+    probes = 'probes' in phases
+    assert [k['name'] for k in kernels] == ['phase_pair'] + (
+        list(chip_smoke.PROBE_KERNELS) if probes else [])
+    k1 = k1_keys(phases)
+    for k in kernels:
+        assert set(k) == KEYS | (k1 if k['name'] == 'phase_pair'
+                                 else set()), k['name']
+        assert k['launches'] > 0 and k['max_abs_err'] == 0.0, k['name']
+        assert k['floor_ms'] == 1.0 and k['ms'] == k['plain_ms'] == 1.0
+        assert k['bound_by'] == 'bytes' and 0 < k['bound_ms'] < 1.0
+        assert (k['library_ms'] == 1.0) == (k['name'] in LIBRARY), k['name']
+    rows = report['rows']
+    assert sorted(rows) == ['K1'] + (['K2', 'K3', 'K4', 'K5', 'K6', 'K7',
+                                      'K7_pair'] if probes else [])
+    assert all(r['bound_ms'] > 0 and r['floor_ms'] == 1.0
+               for r in rows.values())
+    return lines, report, kernels
+
+
+def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
+    """Phases 1-4, 5, 5b, 4b, 7 and 6 (the probes); phases 8-13 are
+    rehearsed in tests/test_torch_chip_smoke_{paths,apps,drivers,bench}.py,
+    a few phases a run, so that the test workers share them."""
+    lines, report, kernels = rehearse(
+        rehearsal, capsys, ('solve', 'independent', 'flux', 'modes',
+                            'probes'))
     ind = report['independent']
     assert len(ind['passes']) == 2 * 4 and len(ind['runs']) == 2
     assert ind['phase_pair_launches'] == ind['steps'] == sum(
@@ -261,6 +326,20 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert modes['camera_air']['mean_plen']['value'] > 1e4
     assert modes['camera_air']['k1_bitwise_steps'] >= 2
     assert any(line.startswith('# phase 7 sort_coherent: ') for line in lines)
+    rows = report['rows']
+    assert rows['K4']['library_ms'] == rows['K6']['library_ms'] == 1.0
+    assert rows['K2']['library_ms'] == 1.0
+    ceiling = [(r['bytes'], r['ok']) for r in report['probes']
+               if r['probe'] == 'vmem_ceiling']
+    assert ceiling[-2:] == [(LIMIT, True), (LIMIT + 4, False)]
+    probe_tags = [r['probe'] for r in report['probes']]
+    assert probe_tags.count('launch_floor') == 1
+    assert probe_tags.count('timing_methods') == 3
+
+
+def check_march(lines, report, kernels):
+    """Phase 8's records and quasi renders (tests/test_torch_chip_smoke_
+    paths.py)."""
     march = report['march']
     assert set(march) == set(PHASE8)
     for name, rec in march.items():
@@ -285,6 +364,10 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
         assert abs(rec['rel_diff_mean']) <= chip_smoke.QUASI_RTOL, name
         assert rec['max_abs_rel_diff_block'] <= chip_smoke.QUASI_RTOL, name
         assert rec['wall_s'] > 0 and len(rec['blocks']) == 16, name
+
+
+def check_dist(lines, report, kernels):
+    """Phase 9's records (tests/test_torch_chip_smoke_paths.py)."""
     dist = report['dist']
     assert set(dist) == set(PHASE9)
     for name, rec in dist.items():
@@ -308,6 +391,10 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert dist['decomp']['k1_bitwise_steps'] >= 2
     assert dist['flux']['toa_direct_max_rel_err'] <= 1e-5
     assert any(line.startswith('# phase 9 decomp: ') for line in lines)
+
+
+def check_apps(lines, report, kernels):
+    """Phase 10's records (tests/test_torch_chip_smoke_apps.py)."""
     apps = report['apps']
     assert set(apps) == set(PHASE10)
     for name, rec in apps.items():
@@ -339,6 +426,10 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
         assert abs(rec['rel_diff_f_down']) <= 0.03
         assert abs(rec['rel_diff_f_up']) <= 0.06
         assert rec['toa_direct_max_rel_err'] <= 1e-5
+
+
+def check_sat(lines, report, kernels):
+    """Phase 11's records (tests/test_torch_chip_smoke_apps.py)."""
     sat = report['sat']
     assert set(sat) == set(PHASE11) | {'file_mb', 'write_s', 'read_s',
                                        'grid', 'exact'}
@@ -360,6 +451,10 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
         for key in ('f_down_sfc', 'f_up_toa', 'f_down_track'):
             assert rec[key]['value'] > 0, (name, key)
     assert any(line.startswith('# phase 11: ') for line in lines)
+
+
+def check_scripts(lines, report, kernels, out_dir):
+    """Phase 12's records (tests/test_torch_chip_smoke_drivers.py)."""
     scripts = report['scripts']
     assert set(scripts) == {'native', 'example_01', 'example_06', 'vis',
                             'matplotlib'}
@@ -390,35 +485,43 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     assert page['block'] == 2 and page['page_shape'] == [100, 100]
     assert scripts['matplotlib'] is page['png_writers_called'] is True
     assert all(n > 0 for n in page['pngs'].values())
-    assert sorted(os.listdir(rehearsal / 'phase12')) == [
+    assert sorted(os.listdir(out_dir)) == [
         '01_flux_clear_sky.png', '06_rad_hem.html', '06_rad_hem.png']
     assert any(line.startswith('# phase 12: ') for line in lines)
-    k1_keys = {'flux_launches'} | {f'{m}_launches'
-                                   for m in PHASE7 + PHASE8} \
-        | {f'dist_{m}_launches' for m in PHASE9} \
-        | {f'apps_{m}_launches' for m in PHASE10} \
-        | {f'sat_{m}_launches' for m in PHASE11} \
-        | {f'examples_{m}_launches' for m in PHASE12}
-    for k in kernels:
-        assert set(k) == KEYS | (k1_keys if k['name'] == 'phase_pair'
-                                 else set()), k['name']
-        assert k['launches'] > 0 and k['max_abs_err'] == 0.0, k['name']
-        assert k['floor_ms'] == 1.0 and k['ms'] == k['plain_ms'] == 1.0
-        assert k['bound_by'] == 'bytes' and 0 < k['bound_ms'] < 1.0
-        assert (k['library_ms'] == 1.0) == (k['name'] in LIBRARY), k['name']
-    rows = report['rows']
-    assert sorted(rows) == ['K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K7',
-                            'K7_pair']
-    assert all(r['bound_ms'] > 0 and r['floor_ms'] == 1.0
-               for r in rows.values())
-    assert rows['K4']['library_ms'] == rows['K6']['library_ms'] == 1.0
-    assert rows['K2']['library_ms'] == 1.0
-    ceiling = [(r['bytes'], r['ok']) for r in report['probes']
-               if r['probe'] == 'vmem_ceiling']
-    assert ceiling[-2:] == [(LIMIT, True), (LIMIT + 4, False)]
-    probe_tags = [r['probe'] for r in report['probes']]
-    assert probe_tags.count('launch_floor') == 1
-    assert probe_tags.count('timing_methods') == 3
+
+
+def _rehearsed_phases():
+    """The ``phases`` that each rehearsal test passes to ``rehearse``, read
+    from the test files by ``ast``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    split = []
+    for name in sorted(os.listdir(here)):
+        if not (name.startswith('test_torch_chip_smoke')
+                and name.endswith('.py')):
+            continue
+        with open(os.path.join(here, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, 'id', None) == 'rehearse':
+                split.append(ast.literal_eval(node.args[2]))
+    return split
+
+
+def test_split_rehearsals_cover_the_default_run():
+    """No CPU test runs every phase in one process (the card run does):
+    the rehearsals, split over five files, run each phase of
+    chip_smoke.run's default once between them, and the launch keys they
+    check add up, with none written by two phases, to those of the
+    default run's kernels line."""
+    default = inspect.signature(chip_smoke.run).parameters['phases'].default
+    assert default == chip_smoke.PHASES
+    split = _rehearsed_phases()
+    assert len(split) == 7
+    assert sorted(p for ps in split for p in ps) == sorted(chip_smoke.PHASES)
+    parts = [k1_keys(ps) for ps in split]
+    assert set().union(*parts) == k1_keys(chip_smoke.PHASES)
+    assert sum(map(len, parts)) == len(k1_keys(chip_smoke.PHASES)) == 33
 
 
 def test_bounds_count_the_bytes_this_run_touches():

@@ -1,7 +1,8 @@
 """The port never imports JAX or the JAX package, its entry points run on
 the card unless asked for the CPU, and neither chip_smoke.py nor the gather
 probes have a CPU fallback.  The same holds for the port's example, project
-and bin/ drivers: none loads JAX or the JAX package, and each driver's
+and bin/ drivers, bench_torch.py and the measurement harnesses of
+scripts/*_torch.py: none loads JAX or the JAX package, and each driver's
 ``--device`` defaults to the card and raises without one."""
 
 import argparse
@@ -53,7 +54,8 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.sat.viirs', 'er3t_tpu_torch.sat.modis',
                 'er3t_tpu_torch.vis', 'er3t_tpu_torch.vis.plot',
                 'er3t_tpu_torch.vis.intv', 'er3t_tpu_torch.native',
-                'chip_smoke_files', 'chip_smoke', 'chip_drivers')
+                'chip_smoke_files', 'chip_smoke', 'chip_drivers',
+                'bench_torch')
 # the port's drivers, and whether each takes --device
 PORT_SCRIPTS = {'examples/00_er3t_tpu_torch.py': True,
                 'examples/01_er3t_tpu_torch_spectral.py': False,
@@ -64,7 +66,15 @@ PORT_SCRIPTS = {'examples/00_er3t_tpu_torch.py': True,
                 'projects/04_cam_nadir_rad_sim_torch.py': True,
                 'projects/05_cnn_les_factory_torch.py': True,
                 'bin/lss_torch': False, 'bin/lsa_torch': False,
-                'bin/sdown_torch': False}
+                'bin/sdown_torch': False, 'bench_torch.py': True,
+                'scripts/profile_ablate_torch.py': True,
+                'scripts/ablate2_torch.py': True,
+                'scripts/var_budget_torch.py': True,
+                'scripts/drain_ab_torch.py': True,
+                'scripts/r5_knobs_torch.py': True,
+                'scripts/tile_sweep_torch.py': True,
+                'scripts/locality_ab_torch.py': True,
+                'scripts/flux_kx_torch.py': True}
 DEVICE_SCRIPTS = [p for p, dev in PORT_SCRIPTS.items() if dev]
 
 

@@ -84,7 +84,6 @@ def test_build_scene_matches_reference(name):
 def test_solver_config_fields_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(jmc.SolverConfig)}
     got = {f.name: f.default for f in dataclasses.fields(tmc.SolverConfig)}
-    ref.pop('ablate')
     assert got == ref
     assert list(got) == [k for k in ref]          # same field order
     with pytest.raises(dataclasses.FrozenInstanceError):
