@@ -13,7 +13,8 @@ Phases (any failure raises and the exit code is non-zero):
 3. kernel phase: the launch floor (the empty kernel), then the phase-pair
    kernel against its plain PyTorch version on the card, bitwise, on the
    bench scene's tables and on a 20-row table at B = 2^17, at a ragged
-   B = 100003 and on lane arrays one element off 16-byte alignment;
+   B = 100003 and on lane arrays one element off 16-byte alignment, and
+   on random tables of the three shapes phase 14 brings to the card;
 4. main path: the bench scene of bench.py (480x480 Mie broken cloud, 16
    g-points, 25-deg truncation) built from er3t_tpu_torch.pre and run
    through the port's build_scene and run_transport_flight with the
@@ -180,6 +181,31 @@ Phases (any failure raises and the exit code is non-zero):
    every launch count set to 0 just before it: phase_pair launched once a
    step (held bitwise on captured steps), and not at all under 'phase';
    every image finite; ms per step printed;
+14. the rest of scripts/ (SWEEPS: each script's main() in this process
+   at a cut argv, every config of it run; the Mie table and the cloud
+   fields made once for all): (a) the harnesses of run_transport_flight,
+   ab_sweep, tile2_sweep, flux_ab, isolate_ab, pallas_ab, r3_sweep,
+   r5_sweep and cam_importance_ab, each with every launch count set to 0
+   just before it, phase_pair launched once per flight step and held
+   bitwise against its plain version on inputs captured from every phase
+   table the harness builds (isolate_ab's (4, 4096) + (2, 8192) and
+   r5_sweep's 1024- and 512-bin tables among them), every photon budget
+   exact, every pinned run (max_events) at its pinned steps, every tally
+   finite; (b) scaling_bench at 1, 2 and 4 ranks on this card, both
+   strategies, through the dist layer: phase_pair once per rank-step and
+   held bitwise, every budget launched, every decomposed run below its
+   round cap; (c) debug_decomp_drain with 2 ranks to its 'drained at
+   round' line through dist.decomp.migrate_dir: phase_pair once per
+   rank-step and held bitwise, every photon launched; every printed
+   number finite and every printed line's text before its first ':' one
+   that the harness's JAX source prints (SWEEP_PREFIXES); (d) the
+   scatter probes at their sizes: gather_probe4 (index_add_ into tallies
+   of 2^18 to 480*480*21*3 f32, device time on against off a loop of 30
+   steps) with one in-loop tally against a float64 host sum to 1e-5 of its
+   largest bin, scatter_bench's seven shapes (2.17 GB tally included),
+   sorted_scatter (the sorted and unsorted sums must match); phase 3 also
+   holds and times the phase pair at the three new table shapes
+   (K1_NEW_TABLES), their launches in phase 14 beside them;
 6. probe phase: every probe kernel (take_reps, gather_row_sum, take2d,
    smem_stage, the bf16 phase pair) against its plain version, bitwise,
    at the TPU probe scripts' shapes and at a ragged B = 100003, timed
@@ -207,9 +233,10 @@ The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}; every measured number also goes to
 build/chip_smoke.json (phase 8 under "march" and "quasi", phase 9 under
 "dist", phase 10 under "apps", phase 11 under "sat", phase 12 under
-"scripts", phase 13 under "bench"; the input files of phases 10 and 11 go
-to build/phase10/ and build/phase11/).  With --profile, 20 radiance steps
-and 20 flux steps are profiled (keys "profile" and "profile_flux").
+"scripts", phase 13 under "bench", phase 14 under "sweeps"; the input
+files of phases 10 and 11 go to build/phase10/ and build/phase11/).  With
+--profile, 20 radiance steps and 20 flux steps are profiled (keys
+"profile" and "profile_flux").
 """
 
 import argparse
@@ -218,6 +245,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import socket
 import sys
 import time
@@ -806,6 +834,117 @@ BENCH_BUDGET = dict(warmup=100_000, probe=2_000_000, chunk=4_000_000,
 ABLATE_STEPS = 40                # phase 13 (b): pinned steps a config
 ABLATIONS = {'full': '', 'phase': 'phase', 'vox': 'vox',
              'deposit': 'deposit', 'floor': 'vox,phase,deposit'}
+# phase 14: the harnesses of scripts/ (name: script, the cut argv of its
+# run here; the defaults are the sources').  Every config of a harness
+# runs; budgets, rounds, pinned steps and ranks are cut, and the warm-up
+# runs launch no photon (the kernels are built in phase 2)
+SWEEPS = {
+    'ab_sweep': ('ab_sweep_torch', ['--photons', '5e4', '--warm', '0',
+                                    '--rounds', '1']),
+    'tile2_sweep': ('tile2_sweep_torch', ['--scale', '0.025', '--warm', '0',
+                                          '--rounds', '1']),
+    'flux_ab': ('flux_ab_torch', ['5e4', '--rounds', '1']),
+    'isolate_ab': ('isolate_ab_torch', ['10']),
+    'pallas_ab': ('pallas_ab_torch', ['10']),
+    'r3_sweep': ('r3_sweep_torch', ['--steps', '10']),
+    'r5_sweep': ('r5_sweep_torch', ['5e4', '1', '--warm', '0']),
+    'cam_importance_ab': ('cam_importance_ab_torch', ['5e3', '2']),
+    'scaling': ('scaling_bench_torch', ['--base-photons', '1024', '--reps',
+                                        '1', '--devices', '1,2,4',
+                                        '--batch', '1024']),
+    'drain': ('debug_decomp_drain_torch', ['2', '4e3']),
+}
+SCRIPTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'scripts')
+# phase 14: the scatter probes at their sizes (gather_probe4's lanes and
+# steps; a scale of scatter_bench's and sorted_scatter's shapes)
+PROBE4 = dict(B=1 << 17, K=30)
+SCATTER_SCALE = 1.0
+# phase 3: the phase tables new to the card in phase 14, (pt_p, pt_mu):
+# isolate_ab's large tables, r5_sweep's 1024 and 512 bins
+K1_NEW_TABLES = (((4, 4096), (2, 8192)), ((4, 1024), (2, 1024)),
+                 ((4, 512), (2, 512)))
+# phase 14: the prefixes (the text before the first ':') of the lines
+# that the JAX sources of the harnesses print at their defaults; a cut
+# run of the port prints a subset of them.  tests/test_torch_sweeps.py
+# records them from the JAX scripts.
+SWEEP_PREFIXES = {
+    'ab_sweep': (
+        '--- totals ---', 'devices', 'r0 t20/tile 0', 'r0 t20/tile16',
+        'r0 t20/tile32', 'r0 t20/tile64', 'r0 t5/tile 0', 'r1 t20/tile 0',
+        'r1 t20/tile16', 'r1 t20/tile32', 'r1 t20/tile64', 'r1 t5/tile 0',
+        'r2 t20/tile 0', 'r2 t20/tile16', 'r2 t20/tile32', 'r2 t20/tile64',
+        'r2 t5/tile 0', 't20/tile 0', 't20/tile16', 't20/tile32', 't20/tile64',
+        't5/tile 0', 'warm t20/tile0', 'warm t20/tile16', 'warm t20/tile32',
+        'warm t20/tile64', 'warm t5/tile0'),
+    'tile2_sweep': (
+        'devices', 'r0 tile 8/chunk2M', 'r0 tile12/chunk2M',
+        'r0 tile16/chunk2M', 'r0 tile16/chunk8M', 'r0 tile24/chunk2M',
+        'r1 tile 8/chunk2M', 'r1 tile12/chunk2M', 'r1 tile16/chunk2M',
+        'r1 tile16/chunk8M', 'r1 tile24/chunk2M', 'warm tile12', 'warm tile16',
+        'warm tile24', 'warm tile8'),
+    'flux_ab': (
+        '', '  domavg      ', '  kx0-legacy  ', '  kx4         ',
+        '  scalar-kx4  ', '  scalar-kx8  ', 'devices', 'median ph/s by config',
+        'r0 domavg      ', 'r0 kx0-legacy  ', 'r0 kx4         ',
+        'r0 scalar-kx4  ', 'r0 scalar-kx8  ', 'r1 domavg      ',
+        'r1 kx0-legacy  ', 'r1 kx4         ', 'r1 scalar-kx4  ',
+        'r1 scalar-kx8  ', 'r2 domavg      ', 'r2 kx0-legacy  ',
+        'r2 kx4         ', 'r2 scalar-kx4  ', 'r2 scalar-kx8  '),
+    'isolate_ab': (
+        '', '  big+lam+pal   ', '  small+lam+pal ', '  small+lam+xla ',
+        '  small-lam+pal ', 'devices', 'median ms/step', 'r0 big+lam+pal   ',
+        'r0 small+lam+pal ', 'r0 small+lam+xla ', 'r0 small-lam+pal ',
+        'r1 big+lam+pal   ', 'r1 small+lam+pal ', 'r1 small+lam+xla ',
+        'r1 small-lam+pal ', 'r2 big+lam+pal   ', 'r2 small+lam+pal ',
+        'r2 small+lam+xla ', 'r2 small-lam+pal '),
+    'pallas_ab': (
+        '', '  pallas      ', '  pallas+srad ', '  scalar-rad  ',
+        '  xla         ', 'devices', 'median ms/step (B=131072)',
+        'r0 pallas      ', 'r0 pallas+srad ', 'r0 scalar-rad  ',
+        'r0 xla         ', 'r1 pallas      ', 'r1 pallas+srad ',
+        'r1 scalar-rad  ', 'r1 xla         ', 'r2 pallas      ',
+        'r2 pallas+srad ', 'r2 scalar-rad  ', 'r2 xla         '),
+    'r3_sweep': (
+        '', '  flux-domavg   ', '  flux-kx4      ', '  flux-kx4-pal  ',
+        '  flux-kx8      ', '  rad-t16-b17', '  rad-t16-b18', '  rad-t32-b17',
+        '  rad-t32-b18', '  rad-t8-b17', '  rad-t8-b18', 'devices',
+        'median ms/step | photons/step | ph/s estimate', 'r0 flux-domavg   ',
+        'r0 flux-kx4      ', 'r0 flux-kx4-pal  ', 'r0 flux-kx8      ',
+        'r0 rad-t16-b17', 'r0 rad-t16-b18', 'r0 rad-t32-b17', 'r0 rad-t32-b18',
+        'r0 rad-t8-b17', 'r0 rad-t8-b18', 'r1 flux-domavg   ',
+        'r1 flux-kx4      ', 'r1 flux-kx4-pal  ', 'r1 flux-kx8      ',
+        'r1 rad-t16-b17', 'r1 rad-t16-b18', 'r1 rad-t32-b17', 'r1 rad-t32-b18',
+        'r1 rad-t8-b17', 'r1 rad-t8-b18', 'r2 flux-domavg   ',
+        'r2 flux-kx4      ', 'r2 flux-kx4-pal  ', 'r2 flux-kx8      ',
+        'r2 rad-t16-b17', 'r2 rad-t16-b18', 'r2 rad-t32-b17', 'r2 rad-t32-b18',
+        'r2 rad-t8-b17', 'r2 rad-t8-b18'),
+    'r5_sweep': (
+        '', '== summary (median rate | median steps | mean rad +- seed sd) ==',
+        'built t20_b1024', 'built t20_b2048', 'built t20_b512',
+        'built t25_b2048', 'built t30_b1024', 'built t30_b2048',
+        'built t35_b2048', 'devices', 'r0 t20_b1024', 'r0 t20_b2048',
+        'r0 t20_b512', 'r0 t25_b2048', 'r0 t30_b1024', 'r0 t30_b2048',
+        'r0 t35_b2048', 'r1 t20_b1024', 'r1 t20_b2048', 'r1 t20_b512',
+        'r1 t25_b2048', 'r1 t30_b1024', 'r1 t30_b2048', 'r1 t35_b2048',
+        'r2 t20_b1024', 'r2 t20_b2048', 'r2 t20_b512', 'r2 t25_b2048',
+        'r2 t30_b1024', 'r2 t30_b2048', 'r2 t35_b2048', 'r3 t20_b1024',
+        'r3 t20_b2048', 'r3 t20_b512', 'r3 t25_b2048', 'r3 t30_b1024',
+        'r3 t30_b2048', 'r3 t35_b2048', 't20_b1024', 't20_b2048', 't20_b512',
+        't25_b2048', 't30_b1024', 't30_b2048', 't35_b2048', 'warm t20_b1024',
+        'warm t20_b2048', 'warm t20_b512', 'warm t25_b2048', 'warm t30_b1024',
+        'warm t30_b2048', 'warm t35_b2048'),
+    'cam_importance_ab': (
+        'sigma=0.0', 'sigma=1.0', 'sigma=2.0', 'sigma=4.0'),
+    'scaling': (
+        '   "alg_efficiency"', '   "launched"', '   "n_dev"', '   "photons"',
+        '   "photons_per_s"', '   "slab_cols"', '   "steps_total"',
+        '   "wall_s"', '   "wallclock_efficiency"', '   "work_per_photon"',
+        '  {', '  }', '  },', ' "decomp"', ' "photon"', ' ]', ' ],',
+        '# decomp n=1', '# decomp n=2', '# decomp n=4', '# decomp n=8',
+        '# photon n=1', '# photon n=2', '# photon n=4', '# photon n=8', '{',
+        '}'),
+}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, HBM3
 F32_FLOPS = 67e12                # H100 SXM data sheet, f32 outside the
                                  # tensor cores
@@ -1090,12 +1229,12 @@ def main():
 
 
 PHASES = ('solve', 'independent', 'flux', 'modes', 'march', 'dist', 'apps',
-          'sat', 'scripts', 'bench', 'probes')
+          'sat', 'scripts', 'bench', 'sweeps', 'probes')
 
 
 def run(args, dev, phases=PHASES):
     """The smoke run (see the module docstring).  Phases 1-4 always run;
-    ``phases`` names the others to run (5, 5b, 4b, 7-13 and 6, in the
+    ``phases`` names the others to run (5, 5b, 4b, 7-14 and 6, in the
     order of PHASES), all of them by default.  The tests rehearse them a
     few at a time; 'independent' needs 'solve'."""
     phases = set(phases)
@@ -1168,6 +1307,25 @@ def run(args, dev, phases=PHASES):
                 plain=lambda: phase_pair_ref(*a),
                 cost=lambda: pair_cost(*a)), floor_ms)
         log(f'# phase_pair {name}: bitwise equal; {kt.get(name, "")}')
+    # the table shapes that phase 14 brings to the card, on random tables
+    # and lanes from a generator of their own
+    rng_t = np.random.default_rng(args.seed + 14)
+    for shape_p, shape_mu in K1_NEW_TABLES:
+        name = 'tables_{}x{}_{}x{}'.format(*shape_p, *shape_mu)
+        t_p = torch.from_numpy(
+            (rng_t.normal(size=shape_p) * 10).astype(np.float32)).to(dev)
+        t_mu = torch.from_numpy(
+            rng_t.uniform(-1, 1, shape_mu).astype(np.float32)).to(dev)
+        a = lane_inputs(rng_t, BATCH, t_p, t_mu, dev)
+        err, same = compare(phase_pair(*a), phase_pair_ref(*a))
+        max_err = max(max_err, err)
+        check(same, f'phase_pair kernel != plain on {name}: max |diff| '
+                    f'{err}')
+        kt[name] = time_case(dict(
+            case=name, kern=lambda: phase_pair(*a),
+            plain=lambda: phase_pair_ref(*a),
+            cost=lambda: pair_cost(*a)), floor_ms)
+        log(f'# phase_pair {name}: bitwise equal; {kt[name]}')
     report['phase_pair'] = kt
     # the timed case of each TPU kernel of the PERF.md table
     rows = {'K1': dict(kernel='phase_pair', **kt['bench_tables'])}
@@ -1301,6 +1459,10 @@ def run(args, dev, phases=PHASES):
     if 'bench' in phases:
         max_err = max(max_err, bench_phase(args, dev, ab, scene, st, report))
 
+    # ---- 14. the sweep, A/B, scaling, drain and scatter harnesses ----
+    if 'sweeps' in phases:
+        max_err = max(max_err, sweeps_phase(args, dev, report))
+
     # ---- 6. probe phase ----
     probe_counts, probe_err, probe_kt = {}, {}, {}
     if 'probes' in phases:
@@ -1336,6 +1498,9 @@ def run(args, dev, phases=PHASES):
                 report['scripts'][f'example_{case}']['phase_pair_launches']
     for name, rec in report.get('bench', {}).items():
         pp_entry[f'{name}_launches'] = rec['phase_pair_launches']
+    for name in SWEEPS if 'sweeps' in phases else ():
+        pp_entry[f'sweeps_{name}_launches'] = \
+            report['sweeps'][name]['phase_pair_launches']
     kernels = {'kernels': [pp_entry] + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name]) for name, (source, replaces)
@@ -1862,18 +2027,21 @@ def march_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     return err
 
 
-def dist_path(name, fn):
+def dist_path(name, fn, homes=None):
     """Run ``fn(run)`` with every launch count set to 0 just before, where
     ``run`` maps 'transport_decomp' and 'transport_photon_parallel' to the
-    solver's dist entries, each call timed and its stats kept (solve's
-    passes go through them too).  Checks that phase_pair, and no other
-    kernel, launched once per flight step of every rank; logs and returns
+    dist entries of the module each is looked up in (``homes``: entry ->
+    module; by default the solver's, so that solve's passes go through
+    them too), each call timed and its stats kept.  Checks that
+    phase_pair, and no other kernel, launched once per flight step of
+    every rank; logs and returns
     (fn's result, a record of the wall, steps per rank, rounds against the
     cap and lanes left in flight, photons, photons/s, migration counts and
     walls, and launch counts)."""
     passes = []
-    engines = {k: getattr(solver, k) for k in ('transport_decomp',
-                                               'transport_photon_parallel')}
+    homes = homes or dict.fromkeys(('transport_decomp',
+                                    'transport_photon_parallel'), solver)
+    engines = {k: getattr(m, k) for k, m in homes.items()}
 
     def timed(engine):
         def run(*a, **kw):
@@ -1889,7 +2057,7 @@ def dist_path(name, fn):
     reset_counts()
     torch.cuda.synchronize()
     for k, r in runs.items():
-        setattr(solver, k, r)
+        setattr(homes[k], k, r)
     try:
         t0 = time.perf_counter()
         out = fn(runs)
@@ -1897,7 +2065,7 @@ def dist_path(name, fn):
         wall = time.perf_counter() - t0
     finally:
         for k, e in engines.items():
-            setattr(solver, k, e)
+            setattr(homes[k], k, e)
     counts = launch_counts()
     rank_steps = [p['rank_steps'] for p in passes]
     steps = sum(map(sum, rank_steps))
@@ -1911,18 +2079,19 @@ def dist_path(name, fn):
                rounds=[p.get('rounds') for p in passes], photons=photons,
                photons_per_s=photons / wall,
                phase_pair_launches=counts['phase_pair'], launches=counts)
-    if 'shipped' in passes[0]:
-        rounds = sum(p['rounds'] for p in passes)
-        flight = sum(p['flight_s'] for p in passes)
-        mig = sum(p['migrate_s'] for p in passes)
-        rec.update(max_rounds=[p['max_rounds'] for p in passes],
-                   in_flight=sum(p['in_flight'] for p in passes),
-                   shipped=sum(p['shipped'] for p in passes),
-                   held=sum(p['held'] for p in passes),
-                   shipped_per_superstep=sum(p['shipped'] for p in passes)
+    dec = [p for p in passes if 'shipped' in p]      # the decomposed runs
+    if dec:
+        rounds = sum(p['rounds'] for p in dec)
+        flight = sum(p['flight_s'] for p in dec)
+        mig = sum(p['migrate_s'] for p in dec)
+        rec.update(max_rounds=[p['max_rounds'] for p in dec],
+                   in_flight=sum(p['in_flight'] for p in dec),
+                   shipped=sum(p['shipped'] for p in dec),
+                   held=sum(p['held'] for p in dec),
+                   shipped_per_superstep=sum(p['shipped'] for p in dec)
                    / rounds, flight_s=flight, migrate_s=mig,
                    migrate_share=mig / (flight + mig))
-    log(f'# phase 9 {name}: ' + json.dumps(rec))
+    log(f'# {name}: ' + json.dumps(rec))
     return out, rec
 
 
@@ -1960,7 +2129,8 @@ def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
 
     # (a) photon-parallel
     n = DIST_PHOTONS
-    tal, rec = dist_path('photon', lambda run: run['transport_photon_parallel'](
+    tal, rec = dist_path('phase 9 photon', lambda run: run[
+        'transport_photon_parallel'](
         scene, st, cfg, n, make_mesh(DIST_RANKS, decomp=1, device=devs),
         seed=args.seed + 30, rad_w=rad_w))
     radiance_mean('photon-parallel', tal, n, rec)
@@ -1977,7 +2147,8 @@ def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     mesh4 = make_mesh(DIST_RANKS, decomp=DIST_RANKS, device=devs)
     mc_flight.phase_pair = capture
     try:
-        tal, rec = dist_path('decomp', lambda run: run['transport_decomp'](
+        tal, rec = dist_path('phase 9 decomp', lambda run: run[
+            'transport_decomp'](
             scene, st, cfg, n, mesh4, seed=args.seed + 31, rad_w=rad_w))
     finally:
         mc_flight.phase_pair = plain_pair
@@ -1999,7 +2170,8 @@ def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
                                flux_kcross=4)
     flux_w, ftoa = spectral_factors(ab, nz_out=st.nz + 1)
     nf = DIST_FLUX_PHOTONS
-    tal, rec = dist_path('flux', lambda run: run['transport_decomp'](
+    tal, rec = dist_path('phase 9 flux', lambda run: run[
+        'transport_decomp'](
         scene, st, fcfg, nf, mesh4, seed=args.seed + 32, flux_w=flux_w))
     tally = tal.flux.cpu().numpy()
     n_l = int(tal.n_launched)
@@ -2025,7 +2197,7 @@ def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
 
     # (d) the front door on the decomposition
     ns = DIST_SOLVE_PHOTONS
-    res, rec = dist_path('solve', lambda run: solve(
+    res, rec = dist_path('phase 9 solve', lambda run: solve(
         atm=atm, abs_coef=ab, **scene_kw, target='radiance', photons=ns,
         n_run=1, batch=BATCH, tile_size=16, qmc_launch=True, n_scat_max=600,
         seed=args.seed + 33, mesh=mesh4, device=dev))
@@ -2050,7 +2222,7 @@ def dist_phase(args, dev, atm, ab, scene_kw, scene, st, report):
         check(pg.size == 1 and type(pg.comm).__name__ == 'ProcessComm',
               f'process-group mesh {pg}')
         backend = dist.get_backend()
-        tal, rec = dist_path('process_group', lambda run: run[
+        tal, rec = dist_path('phase 9 process_group', lambda run: run[
             'transport_photon_parallel'](scene, st, cfg, ns, pg,
                                          seed=args.seed + 34, rad_w=rad_w))
     finally:
@@ -2067,33 +2239,33 @@ def pair_capture(captured, seen, per_table=2, every=25):
     the inputs of steps 0, ``every``, 2 ``every``, ... (``per_table`` of
     them) of each phase table it is given, the tables of every scene a path
     builds (both wavelengths of the LUT among them) listed in ``seen`` as
-    [table, calls]."""
+    [pt_p, pt_mu, calls]."""
     plain = mc_flight.phase_pair
 
     def capture(*a):
         rec = next((r for r in seen if r[0] is a[4]), None)
         if rec is None:
-            rec = [a[4], 0]
+            rec = [a[4], a[5], 0]
             seen.append(rec)
-        n = rec[1]
-        rec[1] += 1
+        n = rec[2]
+        rec[2] += 1
         if n % every == 0 and n // every < per_table:
             captured.append([t.clone() for t in a])
         return plain(*a)
     return capture
 
 
-def captured_path(name, fn, **kw):
-    """path_run(name, fn, **kw) with the phase-pair inputs captured
-    (pair_capture); holds the kernel bitwise against its plain version on
-    each capture and returns (fn's result, the record with the number of
-    phase tables the path ran and their shapes, the largest |kernel -
-    plain|)."""
+def held_k1(name, fn):
+    """``fn()`` with the phase-pair inputs captured (pair_capture); holds
+    the kernel bitwise against its plain version on each capture and
+    returns (fn's result, a record of the captures: their number, the
+    number of phase tables and their shapes, the calls on each table, and
+    the largest |kernel - plain|)."""
     captured, seen = [], []
     plain = mc_flight.phase_pair
     mc_flight.phase_pair = pair_capture(captured, seen)
     try:
-        out, rec = path_run(name, fn, **kw)
+        out = fn()
     finally:
         mc_flight.phase_pair = plain
     err = 0.0
@@ -2104,15 +2276,27 @@ def captured_path(name, fn, **kw):
                     f'#{i} (tables {tuple(a[4].shape)}, {tuple(a[5].shape)}):'
                     f' max |diff| {e}')
     shapes = [[list(t.shape) for t in a[4:]] for a in captured]
-    rec.update(k1_bitwise_steps=len(captured), k1_tables=len(seen),
-               k1_shapes=shapes,
-               passes_at_cap=sum(p['steps'] >= p['cap']
-                                 for p in rec['passes']),
+    calls = [[list(p.shape), list(m.shape), n] for p, m, n in seen]
+    return out, dict(k1_bitwise_steps=len(captured), k1_tables=len(seen),
+                     k1_shapes=shapes, k1_calls_by_table=calls,
+                     k1_max_abs_err=err)
+
+
+def captured_path(name, fn, **kw):
+    """path_run(name, fn, **kw) with the phase-pair inputs captured
+    (held_k1); returns (fn's result, the record with held_k1's and the
+    passes at their cap and lanes in flight, the largest |kernel -
+    plain|)."""
+    (out, rec), k1 = held_k1(name, lambda: path_run(name, fn, **kw))
+    err = k1.pop('k1_max_abs_err')
+    rec.update(k1, passes_at_cap=sum(p['steps'] >= p['cap']
+                                     for p in rec['passes']),
                in_flight=sum(p['in_flight'] for p in rec['passes']))
-    log(f'# phase_pair bitwise equal on {len(captured)} captured steps of '
-        f'{name} ({len(seen)} tables, pt_p and pt_mu {shapes}); '
-        f'{rec["passes_at_cap"]} of {len(rec["passes"])} passes at their '
-        f'step cap, {rec["in_flight"]} lanes in flight at the end')
+    log(f'# phase_pair bitwise equal on {rec["k1_bitwise_steps"]} captured '
+        f'steps of {name} ({rec["k1_tables"]} tables, pt_p and pt_mu '
+        f'{rec["k1_shapes"]}); {rec["passes_at_cap"]} of '
+        f'{len(rec["passes"])} passes at their step cap, {rec["in_flight"]} '
+        f'lanes in flight at the end')
     return out, rec, err
 
 
@@ -2672,6 +2856,256 @@ def bench_phase(args, dev, ab, scene, st, report):
                        'phase_pair_launches', 'branch', 'domain_mean')}
          for k, v in rep.items()}))
     return err
+
+
+class _Tee:
+    """Standard output that is also kept, line by line, in ``lines``."""
+
+    def __init__(self, out, lines):
+        self.out, self.lines, self.part = out, lines, ''
+
+    def write(self, text):
+        self.out.write(text)
+        self.part += text
+        *done, self.part = self.part.split('\n')
+        self.lines.extend(done)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_script(name, argv, dev, lines, setup=None):
+    """scripts/<name>.py's main() at ``argv`` on ``dev``, its printed lines
+    kept in ``lines``, after ``setup(module)``; returns what main
+    returns."""
+    path = os.path.join(SCRIPTS_DIR, name + '.py')
+    mod = load_script(path, 'sweep_' + name)
+    if setup is not None:
+        setup(mod)
+    plain_argv, plain_out = sys.argv, sys.stdout
+    sys.argv = [path, *argv, '--device', str(dev)]
+    sys.stdout = tee = _Tee(plain_out, lines)
+    try:
+        return mod.main()
+    finally:
+        sys.stdout, sys.argv = plain_out, plain_argv
+        if tee.part:
+            lines.append(tee.part)
+
+
+def _cached(fn):
+    """``fn`` computing each result once for the same arguments (the Mie
+    table and the cloud fields, which phase 14's harnesses build again and
+    again; the scene builder only reads them)."""
+    memo = {}
+
+    def cached(*a, **kw):
+        key = repr((a, sorted(kw.items())))
+        if key not in memo:
+            memo[key] = fn(*a, **kw)
+        return memo[key]
+    return cached
+
+
+NON_FINITE = re.compile(r'\b(nan|inf|infinity)\b', re.IGNORECASE)
+
+
+def check_lines(name, lines, prefixes=None):
+    """Every printed number is finite; with ``prefixes``, every line's
+    text before its first ':' is one of them."""
+    bad = [ln for ln in lines if NON_FINITE.search(ln)]
+    check(not bad, f'{name}: non-finite values printed: {bad[:3]}')
+    if prefixes is not None:
+        odd = sorted({ln.split(':')[0] for ln in lines} - set(prefixes))
+        check(not odd, f'{name}: lines the source does not print: {odd}')
+
+
+def sweeps_phase(args, dev, report):
+    """Phase 14: the harnesses of scripts/ at cut argv (SWEEPS) and the
+    scatter probes at their sizes (see the module docstring).  Returns the
+    largest phase_pair |kernel - plain| on the captured inputs."""
+    from er3t_tpu_torch.dist import decomp, photon
+    from er3t_tpu_torch.pre import cld, pha
+    rep = report['sweeps'] = {}
+    err = 0.0
+    plain_mie, plain_cld = pha.pha_mie_wc, cld.cld_gen_hem
+    pha.pha_mie_wc = _cached(plain_mie)
+    cld.cld_gen_hem = _cached(plain_cld)
+    t_phase = time.perf_counter()
+    try:
+        for name, (script, argv) in SWEEPS.items():
+            lines = []
+            if name == 'scaling':
+                homes = dict(transport_decomp=decomp,
+                             transport_photon_parallel=photon)
+                out, rec, e = _scaling(name, script, argv, dev, lines, homes)
+            elif name == 'drain':
+                out, rec, e = _drain(name, script, argv, dev, lines)
+            else:
+                out, rec, e = _flight_sweep(name, script, argv, dev, lines)
+            err = max(err, e)
+            check_lines(name, lines, SWEEP_PREFIXES.get(name))
+            rec['lines'] = len(lines)
+            rep[name] = rec
+    finally:
+        pha.pha_mie_wc, cld.cld_gen_hem = plain_mie, plain_cld
+    rep['probes'] = _scatter_probes(dev)
+    rep['wall_s'] = time.perf_counter() - t_phase
+    # K1's launches in this phase on each table shape, beside its rows
+    by_shape = {}
+    for name in SWEEPS:
+        for shape_p, shape_mu, n in rep[name]['k1_calls_by_table']:
+            key = 'tables_{}x{}_{}x{}'.format(*shape_p, *shape_mu)
+            by_shape[key] = by_shape.get(key, 0) + n
+    rep['k1_launches_by_table'] = by_shape
+    for key, kt in report.get('phase_pair', {}).items():
+        if key.startswith('tables_'):
+            kt['sweeps_launches'] = by_shape.get(key, 0)
+            check(kt['sweeps_launches'] > 0,
+                  f'phase 14 ran no phase table of {key}')
+    keys = ('wall_s', 'steps', 'photons', 'phase_pair_launches', 'k1_tables',
+            'passes_at_cap', 'drained')
+    log('# phase 14: ' + json.dumps(
+        {name: {k: v for k, v in rep[name].items() if k in keys}
+         for name in SWEEPS} | {k: rep[k] for k in ('wall_s',
+                                                     'k1_launches_by_table')}))
+    return err
+
+
+def _flight_sweep(name, script, argv, dev, lines):
+    """A harness of run_transport_flight (items 1-8 of phase 14) through
+    captured_path: K1 once a step and bitwise on every table; every
+    budget exact, every pinned run at its pinned steps; every tally
+    finite."""
+    runs = []
+
+    def drive(run):
+        def checked(scene, st, cfg, n, *a, **kw):
+            tal = run(scene, st, cfg, n, *a, **kw)
+            runs.append(dict(
+                budget=int(n), pinned=cfg.max_events,
+                photons=int(tal.n_launched), steps=int(tal.n_steps),
+                finite=bool(torch.isfinite(tal.rad).all()
+                            and torch.isfinite(tal.flux).all())))
+            return tal
+        mc_flight.run_transport_flight = checked
+        try:
+            return run_script(script, argv, dev, lines)
+        finally:
+            mc_flight.run_transport_flight = run
+    out, rec, err = captured_path(f'phase 14 {name}', drive,
+                                  module=mc_flight)
+    for r in runs:
+        check(r['finite'], f'{name}: a tally is not finite: {r}')
+        if r['pinned']:
+            check(r['steps'] == r['pinned'],
+                  f'{name}: a pinned run took {r["steps"]} steps: {r}')
+        else:
+            check(r['photons'] == r['budget'],
+                  f'{name}: launched {r["photons"]} of {r["budget"]}')
+    rec.update(runs=len(runs), pinned_runs=sum(bool(r['pinned'])
+                                               for r in runs))
+    return out, rec, err
+
+
+def _scaling(name, script, argv, dev, lines, homes):
+    """scaling_bench_torch through dist_path (K1 once a rank-step, held
+    bitwise on every table): every budget launched, every decomposed run
+    below its round cap, the JSON rows' work finite and positive."""
+    (out, rec), k1 = held_k1(f'phase 14 {name}', lambda: dist_path(
+        f'phase 14 {name}', lambda run: run_script(script, argv, dev, lines),
+        homes=homes))
+    err = k1.pop('k1_max_abs_err')
+    rec.update(k1)
+    for strat, rows in out.items():
+        for row in rows:
+            check(row['launched'] == row['photons']
+                  and row['work_per_photon'] > 0
+                  and math.isfinite(row['alg_efficiency']),
+                  f'{name} {strat}: {row}')
+    rounds = [r for r in rec['rounds'] if r is not None]
+    check(rounds and all(r < m for r, m in zip(rounds, rec['max_rounds']))
+          and rec['in_flight'] == 0,
+          f'{name}: rounds {rounds} of the cap {rec["max_rounds"]}, '
+          f'{rec["in_flight"]} lanes in flight')
+    rec['rows'] = out
+    return out, rec, err
+
+
+def _drain(name, script, argv, dev, lines):
+    """debug_decomp_drain_torch to its 'drained at round' line: K1 once a
+    rank-step, held bitwise; every photon launched."""
+    def drive():
+        reset_counts()
+        out = run_script(script, argv, dev, lines)
+        return out, launch_counts()      # before the bitwise checks launch
+    (out, counts), rec = held_k1(f'phase 14 {name}', drive)
+    err = rec.pop('k1_max_abs_err')
+    n_dev, n_photon = int(argv[0]), int(float(argv[1]))
+    steps = sum(out['rank_steps'])
+    check(counts['phase_pair'] == steps > 0,
+          f'{name}: phase_pair launched {counts["phase_pair"]} times in '
+          f'{steps} rank steps')
+    check(all(n == 0 for k, n in counts.items() if k != 'phase_pair'),
+          f'{name}: other kernels launched: {counts}')
+    check(out['drained'] is not None
+          and lines[-1] == f'drained at round {out["drained"]}',
+          f'{name}: not drained in {out["rounds"]} rounds')
+    check(sum(out['launched']) == n_photon // n_dev * n_dev,
+          f'{name}: launched {out["launched"]}')
+    for row in out['rows']:
+        check(all(v >= 0 for k in ('act', 'roam', 'froz') for v in row[k]),
+              f'{name}: row {row}')
+    rec.update(steps=steps, phase_pair_launches=counts['phase_pair'],
+               drained=out['drained'], launched=out['launched'],
+               rows=out['rows'])
+    return out, rec, err
+
+
+def _scatter_probes(dev):
+    """Items 11-13 of phase 14: gather_probe4 (lanes and steps PROBE4),
+    one of its in-loop tallies against a float64 host sum, scatter_bench
+    and sorted_scatter (SCATTER_SCALE; the sorted and unsorted sums must
+    match)."""
+    rep = {}
+    loaded = []
+
+    def sized(mod):
+        for k, v in PROBE4.items():
+            setattr(mod, k, v)
+        loaded.append(mod)
+    lines = []
+    recs = run_script('gather_probe4_torch', [], dev, lines, sized)
+    probe4 = loaded[0]
+    check(all('error' not in r and math.isfinite(r['ns_per_row'])
+              for r in recs.values()), f'gather_probe4: {recs}')
+    check([json.loads(ln)['probe'] for ln in lines][1:] == list(recs),
+          f'gather_probe4: lines {lines}')
+    keep = []
+    tal, _ = probe4.scatter_loop(1 << 18, 1, dev, True, keep=keep)
+    ref = np.zeros(1 << 18)
+    for idx, u in keep:
+        np.add.at(ref, idx.cpu().numpy(),
+                  u.cpu().numpy().astype(np.float64))
+    got = tal.cpu().numpy()
+    rel = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+    check(rel <= 1e-5, f'gather_probe4: in-loop tally off the float64 host '
+                       f'sum by {rel} of its largest bin')
+    rep['gather_probe4'] = dict(records=recs, tally_max_rel_err=rel)
+    scale = ['--scale', repr(SCATTER_SCALE)]
+    lines = []
+    out = run_script('scatter_bench_torch', scale, dev, lines)
+    check(len(out) == 7 and not [ln for ln in lines if 'FAILED' in ln],
+          f'scatter_bench: {lines}')
+    check_lines('scatter_bench', lines)
+    rep['scatter_bench'] = out
+    lines = []
+    rep['sorted_scatter'] = run_script('sorted_scatter_torch', scale, dev,
+                                       lines)
+    check_lines('sorted_scatter', lines)
+    log('# phase 14 scatter probes: ' + json.dumps(rep))
+    return rep
 
 
 def profile_steps(scene, st, cfg, dev, rad_w=None, flux_w=None):

@@ -32,7 +32,8 @@ from ..rtm.scene import SceneArrays, SceneStatic
 from .mesh import Mesh, rank_seed
 from .photon import scene_on
 
-__all__ = ['transport_decomp', 'shard_scene', 'migrate_dir']
+__all__ = ['transport_decomp', 'shard_scene', 'migrate_dir', 'rank_kernels',
+           'rank_step']
 
 _F = torch.float32
 _SHARDED = ('ext3d', 'ssa3d', 'apf3d', 'cf3d')
@@ -128,6 +129,45 @@ def migrate_dir(mesh: Mesh, cs, window: int, lx_loc: float, zd_top: float,
     return new
 
 
+def rank_kernels(scene, st, cfg: SolverConfig, mesh: Mesh, n_per: int,
+                 seed: int, flux_w=None, rad_w=None, spawn_reserve: int = 0):
+    """The flight kernels of the local ranks of a decomposed run: for each,
+    (its kernel on its slab of ``scene`` with ``n_per`` photons, its
+    generator seeded ``rank_seed(seed, r)``, its stratified-launch offset,
+    its device).  :func:`transport_decomp` runs them; so does a script
+    that steps the ranks by hand (scripts/debug_decomp_drain_torch.py)."""
+    n_dev = mesh.shape['x']
+    nx_loc = st.nx // n_dev
+    slab = SlabSpec(nx_global=st.nx, nx_local=nx_loc)
+    ranks = []
+    for r in mesh.local_ranks:
+        i = mesh.coords(r)[0]
+        dev = mesh.device(r)
+        scn, st_loc = shard_scene(scene, st, n_dev, i)
+        scn = scene_on(scn, dev)
+        resolve_device(scn, dev)
+        kern = FlightKernel(scn, st_loc, cfg, n_per, rad_w=rad_w,
+                            flux_w=flux_w, slab=slab,
+                            x_off=_f32(float(i * nx_loc) * _f32(st.dx)),
+                            spawn_reserve=spawn_reserve)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(rank_seed(seed, r))
+        q_off = (torch.randint(0, kern.n_cell, (), generator=gen, device=dev)
+                 if kern.strat else 0)
+        ranks.append((kern, gen, q_off, dev))
+    return ranks
+
+
+def rank_step(cfg: SolverConfig, c, kern, gen, q_off, dev):
+    """One flight step of a rank's carry ``c`` (a rank of
+    :func:`rank_kernels`), its deviates drawn from its generator."""
+    kw = {}
+    u = draw_deviates(gen, cfg.batch, dev)
+    if cfg.split_wmax > 0:
+        kw['u_split'] = draw_deviates(gen, cfg.batch, dev, rows=1)[0]
+    return kern.step(c, u, q_off, **kw)
+
+
 def _sync(mesh):
     for r in mesh.local_ranks:
         if mesh.device(r).type == 'cuda':
@@ -164,7 +204,6 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int,
         raise ValueError('nx must divide the decomposition axis')
     radiance = cfg.target == 'radiance'
     nx_loc = st.nx // n_dev
-    slab = SlabSpec(nx_global=st.nx, nx_local=nx_loc)
     B = cfg.batch
     M = window or max(B // 4, 1)
     if spawn_reserve is None:
@@ -175,34 +214,13 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int,
                          * max(1600 // k_super, 8)) + 32
     n_per //= n_b
 
-    ranks = []
-    for r in mesh.local_ranks:
-        i = mesh.coords(r)[0]
-        dev = mesh.device(r)
-        scn, st_loc = shard_scene(scene, st, n_dev, i)
-        scn = scene_on(scn, dev)
-        resolve_device(scn, dev)
-        kern = FlightKernel(scn, st_loc, cfg, n_per, rad_w=rad_w,
-                            flux_w=flux_w, slab=slab,
-                            x_off=_f32(float(i * nx_loc) * _f32(st.dx)),
-                            spawn_reserve=spawn_reserve)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(rank_seed(seed, r))
-        q_off = (torch.randint(0, kern.n_cell, (), generator=gen, device=dev)
-                 if kern.strat else 0)
-        ranks.append((kern, gen, q_off, dev))
+    ranks = rank_kernels(scene, st, cfg, mesh, n_per, seed, flux_w=flux_w,
+                         rad_w=rad_w, spawn_reserve=spawn_reserve)
     cs = [kern.carry0(B) for kern, *_ in ranks]
     k0 = ranks[0][0]
     # above the deck top lanes roam and are not shipped; under per-column
     # flux every lane out of its slab ships
     roam, lx_loc, zd_top = k0.roam, k0.lx_loc, k0.zd_hi
-
-    def step(c, kern, gen, q_off, dev):
-        kw = {}
-        u = draw_deviates(gen, B, dev)
-        if cfg.split_wmax > 0:
-            kw['u_split'] = draw_deviates(gen, B, dev, rows=1)[0]
-        return kern.step(c, u, q_off, **kw)
 
     counts = [[0, 0] for _ in cs]
     flight_s = migrate_s = 0.0
@@ -212,7 +230,7 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int,
         t0 = time.perf_counter()
         for k, rk in enumerate(ranks):
             for _ in range(k_super):
-                cs[k] = step(cs[k], *rk)
+                cs[k] = rank_step(cfg, cs[k], *rk)
         if stats is not None:
             _sync(mesh)
         t1 = time.perf_counter()

@@ -323,7 +323,8 @@ def test_script_runs_equal_the_reference(key, jax_cache, mie, monkeypatch,
 
 # the modules of tests/ that import bench.py or load the JAX scripts
 BENCH_TEST_MODULES = ('test_torch_bench', 'test_torch_ablate',
-                      'test_torch_chip_smoke_bench')
+                      'test_torch_chip_smoke_bench', 'test_torch_sweeps',
+                      'test_torch_chip_smoke_sweeps')
 
 
 def test_collection_leaves_the_environment_alone():

@@ -9,8 +9,9 @@ launch counts of the main path and of the probe path.  Each test runs a
 few phases (``chip_smoke.run(..., phases=)``): this file phases 1-7 and
 the probes; tests/test_torch_chip_smoke_paths.py phases 8-9,
 tests/test_torch_chip_smoke_apps.py phases 10-11,
-tests/test_torch_chip_smoke_drivers.py phase 12 and
-tests/test_torch_chip_smoke_bench.py phase 13, with the fixture and the
+tests/test_torch_chip_smoke_drivers.py phase 12,
+tests/test_torch_chip_smoke_bench.py phase 13 and
+tests/test_torch_chip_smoke_sweeps.py phase 14, with the fixture and the
 checks of this file, so that the test workers share them.  Phase 8's quasi
 renders are held against the JAX package's on the same small scene, and
 phase 11's reader and cloud values (the AHI granule gridded to 12 x 12)
@@ -55,6 +56,8 @@ PHASE11 = ('3d', 'ipa')
 PHASE12 = ('01', '06')
 PHASE13 = ('bench', 'ablate_full', 'ablate_phase', 'ablate_vox',
            'ablate_deposit', 'ablate_floor')
+PHASE14 = ('ab_sweep', 'tile2_sweep', 'flux_ab', 'isolate_ab', 'pallas_ab',
+           'r3_sweep', 'r5_sweep', 'cam_importance_ab', 'scaling', 'drain')
 
 
 def _small_scene(device):
@@ -106,16 +109,27 @@ def _sat_exact(fname, nx):
             float(cld.extinction.sum()))
 
 
-def _counting(fn, attr='launches'):
+class _Counting:
     """``fn`` whose every call adds one to the launch count it would add
-    on the card."""
-    def shim(*a, **kw):
-        name = attr
+    on the card; its attributes (the counts) are ``fn``'s, so that code
+    holding the shim reads and resets them as it would on the card."""
+
+    def __init__(self, fn):
+        object.__setattr__(self, 'fn', fn)
+
+    def __call__(self, *a, **kw):
+        fn = self.fn
+        name = 'launches'
         if fn is pp.phase_pair and a[4].dtype == torch.bfloat16:
             name = 'launches_bf16'
         setattr(fn, name, getattr(fn, name) + 1)
         return fn(*a, **kw)
-    return shim
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
 
 
 @pytest.fixture
@@ -196,13 +210,13 @@ def rehearsal(monkeypatch, tmp_path):
         for attr in ('launches', 'launches_bf16'):
             if hasattr(fn, attr):
                 monkeypatch.setattr(fn, attr, getattr(fn, attr))
-    shims = {name: _counting(fn) for name, fn in wrappers.items()}
+    shims = {name: _Counting(fn) for name, fn in wrappers.items()}
 
     def refusing(tab):
         if tab.numel() * 4 > LIMIT:
             raise _build.CudaError('smem_stage', 1)
         return shims['smem_stage'](tab)
-    for mod in (mc, mc_flight, gather_probe, gather):
+    for mod in (mc, mc_flight, gather_probe, gather, chip_smoke):
         for name, shim in shims.items():
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, shim)
@@ -234,6 +248,8 @@ def k1_keys(phases):
         keys |= {f'examples_{m}_launches' for m in PHASE12}
     if 'bench' in phases:
         keys |= {f'{m}_launches' for m in PHASE13}
+    if 'sweeps' in phases:
+        keys |= {f'sweeps_{m}_launches' for m in PHASE14}
     return keys
 
 
@@ -281,9 +297,9 @@ def rehearse(rehearsal, capsys, phases, monkeypatch=None):
 
 
 def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
-    """Phases 1-4, 5, 5b, 4b, 7 and 6 (the probes); phases 8-13 are
-    rehearsed in tests/test_torch_chip_smoke_{paths,apps,drivers,bench}.py,
-    a few phases a run, so that the test workers share them."""
+    """Phases 1-4, 5, 5b, 4b, 7 and 6 (the probes); phases 8-14 are
+    rehearsed in tests/test_torch_chip_smoke_{paths,apps,drivers,bench,
+    sweeps}.py, a few phases a run, so that the test workers share them."""
     lines, report, kernels = rehearse(
         rehearsal, capsys, ('solve', 'independent', 'flux', 'modes',
                             'probes'))
@@ -510,18 +526,18 @@ def _rehearsed_phases():
 
 def test_split_rehearsals_cover_the_default_run():
     """No CPU test runs every phase in one process (the card run does):
-    the rehearsals, split over five files, run each phase of
+    the rehearsals, split over six files, run each phase of
     chip_smoke.run's default once between them, and the launch keys they
     check add up, with none written by two phases, to those of the
     default run's kernels line."""
     default = inspect.signature(chip_smoke.run).parameters['phases'].default
     assert default == chip_smoke.PHASES
     split = _rehearsed_phases()
-    assert len(split) == 7
+    assert len(split) == 8
     assert sorted(p for ps in split for p in ps) == sorted(chip_smoke.PHASES)
     parts = [k1_keys(ps) for ps in split]
     assert set().union(*parts) == k1_keys(chip_smoke.PHASES)
-    assert sum(map(len, parts)) == len(k1_keys(chip_smoke.PHASES)) == 33
+    assert sum(map(len, parts)) == len(k1_keys(chip_smoke.PHASES)) == 43
 
 
 def test_bounds_count_the_bytes_this_run_touches():

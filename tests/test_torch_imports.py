@@ -74,7 +74,20 @@ PORT_SCRIPTS = {'examples/00_er3t_tpu_torch.py': True,
                 'scripts/r5_knobs_torch.py': True,
                 'scripts/tile_sweep_torch.py': True,
                 'scripts/locality_ab_torch.py': True,
-                'scripts/flux_kx_torch.py': True}
+                'scripts/flux_kx_torch.py': True,
+                'scripts/ab_sweep_torch.py': True,
+                'scripts/tile2_sweep_torch.py': True,
+                'scripts/flux_ab_torch.py': True,
+                'scripts/isolate_ab_torch.py': True,
+                'scripts/pallas_ab_torch.py': True,
+                'scripts/r3_sweep_torch.py': True,
+                'scripts/r5_sweep_torch.py': True,
+                'scripts/cam_importance_ab_torch.py': True,
+                'scripts/scaling_bench_torch.py': True,
+                'scripts/debug_decomp_drain_torch.py': True,
+                'scripts/gather_probe4_torch.py': True,
+                'scripts/scatter_bench_torch.py': True,
+                'scripts/sorted_scatter_torch.py': True}
 DEVICE_SCRIPTS = [p for p, dev in PORT_SCRIPTS.items() if dev]
 
 
