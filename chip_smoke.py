@@ -282,6 +282,7 @@ from er3t_tpu_torch.rtm.quasi import quasi_radiance
 from er3t_tpu_torch.rtm.scene import build_scene
 from er3t_tpu_torch.rtm.solver import solve
 from er3t_tpu_torch.sat.ahi import ahi_l2
+from er3t_tpu_torch.util import trace
 
 # Domain-mean radiance [W/m^2/nm/sr] of the bench scene under the production
 # config, computed by the JAX package (er3t_tpu 0.1.0, JAX 0.9.0) on the CPU
@@ -989,6 +990,16 @@ def reset_counts():
         f.launches = 0
 
 
+def read_back_s():
+    """Seconds the traced run spent in the flight's per-step read-back
+    (the span ``flight.read``: the wait on the device and the copy); turns
+    the port's tracing off and clears it."""
+    trace.enable(False)
+    s = trace.report()['spans']['flight.read']['total_ms'] * 1e-3
+    trace.reset()
+    return s
+
+
 # ---- what each kernel must move: (bytes, float operations) ----
 
 def _touched(flat):
@@ -1368,11 +1379,14 @@ def run(args, dev, phases=PHASES):
     stats = {}
     reset_counts()
     torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
     t0 = time.perf_counter()
     tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph, args.seed + 2,
                                          dev, rad_w=rad_w, stats=stats)
     img = tal.rad.cpu().numpy()
     wall = time.perf_counter() - t0
+    read_s = read_back_s()
     launches = phase_pair.launches
     main_counts = launch_counts()
     steps = int(tal.n_steps)
@@ -1392,8 +1406,7 @@ def run(args, dev, phases=PHASES):
                 lane_iters=float(tal.lane_iters), ms_per_step=1e3 * wall / steps,
                 stage_steps=stats['stage_steps'],
                 phase_pair_launches=launches, launches=main_counts,
-                host_read_s=stats['host_read_s'],
-                host_read_share=stats['host_read_s'] / wall,
+                host_read_s=read_s, host_read_share=read_s / wall,
                 domain_mean=mean, ref_mean=ref['ref'], tol=ref['tol'],
                 rel_diff=ref['rel_diff'])
     report['main'] = main
@@ -1636,11 +1649,14 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
     stats = {}
     reset_counts()
     torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
     t0 = time.perf_counter()
     tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph, args.seed + 5,
                                          dev, flux_w=factors, stats=stats)
     tally = tal.flux.cpu().numpy()
     wall = time.perf_counter() - t0
+    read_s = read_back_s()
     counts = launch_counts()
     steps = int(tal.n_steps)
     n_l = int(tal.n_launched)
@@ -1663,8 +1679,7 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
         lane_iters=float(tal.lane_iters), ms_per_step=1e3 * wall / steps,
         stage_steps=stats['stage_steps'],
         phase_pair_launches=counts['phase_pair'], launches=counts,
-        host_read_s=stats['host_read_s'],
-        host_read_share=stats['host_read_s'] / wall,
+        host_read_s=read_s, host_read_share=read_s / wall,
         toa_direct_max_rel_err=toa_err,
         f_down_sfc=against_ref('domain-mean surface f_down',
                                float(red['f_down'][:, :, 0].mean()),

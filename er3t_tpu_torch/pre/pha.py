@@ -13,6 +13,7 @@ import numpy as np
 
 from ..physics import hg as hg_mod
 from ..physics import mie as mie_mod
+from ..util import trace
 
 __all__ = ['PhaseTable', 'pha_hg', 'pha_mie_wc', 'build_phase_table']
 
@@ -157,8 +158,9 @@ class pha_mie_wc:
         if reff_grid is None:
             reff_grid = np.concatenate([np.arange(1.0, 15.0, 1.0),
                                         np.arange(15.0, 25.01, 2.5)])
-        out = mie_mod.mie_gamma_dist(wavelength, reff_grid, veff=veff,
-                                     angles_deg=angles, n_quad=n_quad)
+        with trace.span('pre.mie'):
+            out = mie_mod.mie_gamma_dist(wavelength, reff_grid, veff=veff,
+                                         angles_deg=angles, n_quad=n_quad)
         self.wvl = float(wavelength)
         self.data = {
             'id': 'Mie',

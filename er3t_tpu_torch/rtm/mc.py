@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..util import trace
 from .brdf import brdf_eval, brdf_sample_dir_weight
 from .phase_pair import phase_pair
 
@@ -136,6 +136,23 @@ def draw_deviates(gen: torch.Generator, batch: int, device,
     u = torch.rand((rows, batch), generator=gen, dtype=_F, device=device)
     return u.mul_(float(_U_HI - _U_LO)).add_(float(_U_LO)) \
         .clamp_(min=float(_U_LO))
+
+
+def read_counts(c, device) -> list:
+    """The loop condition's two numbers of carry ``c``, lanes alive and
+    photons launched, read back from ``device``.  Traced, the read is the
+    span ``flight.read``: ``flight.read.wait`` until the device has done
+    the work queued so far (a CUDA event), then ``flight.read.copy``."""
+    if not trace.enabled():
+        return torch.stack([torch.sum(c.alive), c.launched]).tolist()
+    with trace.span('flight.read'):
+        with trace.span('flight.read.wait'):
+            if device.type == 'cuda':
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(device))
+                ev.synchronize()
+        with trace.span('flight.read.copy'):
+            return torch.stack([torch.sum(c.alive), c.launched]).tolist()
 
 
 def rotate(ux, uy, uz, mu, psi):
@@ -569,10 +586,12 @@ def transport(scene, st, cfg: SolverConfig, n_photon: int, seed: int,
     ``torch.Generator`` seeded with ``seed``, or takes them from
     ``deviates(step)`` (the tests inject the reference's own draws).
     ``cfg.use_pallas`` is ignored, as in the reference.  ``stats``: an
-    optional dict that receives ``max_steps`` and ``host_read_s``, the wall
-    time of the per-step read-back.  Flux tallies come back as (Nxf, Nyf,
-    Nz+1, 3, Ng) with the deterministic TOA down-direct entry added once
-    after the loop (reference :678-683); ``lane_iters`` is steps x batch.
+    optional dict that receives ``max_steps``.  Traced
+    (:mod:`er3t_tpu_torch.util.trace`), the loop records the spans
+    ``flight.deviates``, ``flight.step`` and ``flight.read``.  Flux tallies
+    come back as (Nxf, Nyf, Nz+1, 3, Ng) with the deterministic TOA
+    down-direct entry added once after the loop (reference :678-683);
+    ``lane_iters`` is steps x batch.
     """
     dev = resolve_device(scene, device)
     kern = MarchingKernel(scene, st, cfg, n_photon)
@@ -584,18 +603,17 @@ def transport(scene, st, cfg: SolverConfig, n_photon: int, seed: int,
 
         def deviates(_step):
             return draw_deviates(gen, b, dev, rows=9)
-    host_read_s = 0.0
     c = kern.carry0(b)
     while c.step < max_steps:
-        t0 = time.perf_counter()
-        n_alive, launched = torch.stack([torch.sum(c.alive),
-                                         c.launched]).tolist()
-        host_read_s += time.perf_counter() - t0
+        n_alive, launched = read_counts(c, dev)
         if n_alive == 0 and launched >= n:
             break
-        c = kern.step(c, deviates(c.step))
+        with trace.span('flight.deviates'):
+            u = deviates(c.step)
+        with trace.span('flight.step'):
+            c = kern.step(c, u)
     if stats is not None:
-        stats.update(max_steps=max_steps, host_read_s=host_read_s)
+        stats.update(max_steps=max_steps)
 
     nlev, ng = kern.nlev, st.ng
     if kern.radiance:

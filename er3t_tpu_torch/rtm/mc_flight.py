@@ -52,21 +52,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..util import trace
 from .mc import (SolverConfig, Tallies, _sensor_dir, draw_deviates,
-                 resolve_device, rotate)
+                 read_counts, resolve_device, rotate)
 from .phase_pair import phase_pair
 from .brdf import brdf_eval, brdf_sample_dir_weight
 from .scene import SceneArrays, SceneStatic, camera_rotation
 
 __all__ = ['FlightCarry', 'FlightKernel', 'SlabSpec', 'transport_flight',
            'run_transport_flight', 'draw_deviates', 'lane_matrix',
-           'lanes_from_matrix']
+           'lanes_from_matrix', 'OUTCOMES']
+
+# the classes of an active lane iteration (transport_flight's counters)
+OUTCOMES = ('real', 'null', 'surface', 'toa', 'stopped')
 
 _F = torch.float32
 _I = torch.int32
@@ -207,7 +210,15 @@ class FlightKernel:
     Radiance images are global.  ``spawn_reserve`` withholds that many
     dead lanes from respawn each step, so migration always finds landing
     room.
+
+    ``outcome``: ``None``, or a (5,) int64 tensor on the device to which
+    each step adds its counts of active lanes that made a real collision,
+    a tentative one (real or null), a surface hit, a TOA escape, and a
+    flight stopped short at a crossing-count, tile or slab clamp (the
+    caller sets it; it draws no deviate and changes no tally).
     """
+
+    outcome = None
 
     def __init__(self, scene: SceneArrays, st: SceneStatic,
                  cfg: SolverConfig, n_photon: int, rad_w=None, flux_w=None,
@@ -542,9 +553,11 @@ class FlightKernel:
         forcing = cfg.cf_dtau > 0
 
         if cfg.split_wmax > 0:
+            trace.phase('step.split')
             c = self._split(c, u_split)
 
         # ---------------- respawn ----------------
+        trace.phase('step.respawn')
         dead = ~c.alive
         order = torch.cumsum(dead, dim=0)                      # int64
         quota = self.n_photon - c.launched
@@ -597,6 +610,7 @@ class FlightKernel:
             active = alive & self._in_slab(x)
 
         # ---------------- analytic flight through the majorant ----------------
+        trace.phase('step.move')
         going_up = uz > 0.0
         uz_safe = torch.where(torch.abs(uz) < 1e-6,
                               torch.sign(uz + 1e-30) * 1e-6, uz)
@@ -927,6 +941,7 @@ class FlightKernel:
         plen = plen + torch.where(active, s_star, 0.0)
 
         # ---------------- collision: accept / channel ----------------
+        trace.phase('step.collide')
         ix, iy = self._col_index(x, y, ix0, iy0, nscat)
         k3 = torch.clamp(l_col - st.iz3l, 0, st.nz3 - 1)
         if st.has_3d:
@@ -1020,6 +1035,7 @@ class FlightKernel:
                                          self.pt_mu)
 
         # ---------------- local estimates ----------------
+        trace.phase('step.estimate')
         if self.uniform_sfc:
             srow = self.sfc_tab[0].expand(x.shape[0], 6)
         else:
@@ -1100,6 +1116,7 @@ class FlightKernel:
                                 (torch.exp(labs[:ng]) * ab_c[None, :]).T)
 
         # ---------------- direction updates ----------------
+        trace.phase('step.turn')
         psi = u[6] * (2.0 * math.pi)
         ux_s, uy_s, uz_s = rotate(ux, uy, uz, mu_new, psi)
         bx, by, bz, bw = brdf_sample_dir_weight(
@@ -1119,6 +1136,13 @@ class FlightKernel:
         tau = torch.where(active, -torch.log(u[7]), tau)
 
         # ---------------- termination / roulette ----------------
+        trace.phase('step.roulette')
+        if self.outcome is not None:
+            stopped = tclamp | zclamp
+            if clamped is not None:
+                stopped = stopped | clamped
+            self.outcome += torch.sum(torch.stack(
+                [accept, collided, hit_sfc, exit_toa, stopped]), dim=1)
         alive = alive & ~exit_toa & (nscat < cfg.n_scat_max) & (wsc > 0.0)
         wmax = wsc * torch.exp(labs[ng])
         need_rr = active & (wmax < cfg.rr_wmin)
@@ -1136,6 +1160,7 @@ class FlightKernel:
         wsc = torch.where(need_rr & ~die,
                           wsc / torch.clamp(p_surv, min=1e-12), wsc)
         alive = alive & ~die
+        trace.phase(None)
 
         return FlightCarry(x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, wsc=wsc,
                            labs=labs, tau=tau, nscat=nscat, alive=alive,
@@ -1205,13 +1230,21 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     Without sorting, once the budget is launched and the survivors fit,
     lanes are compacted alive-first into B/8 and then B/64 batches (each
     lane keeps its own state; later deviates are fresh draws).
-    ``stats``: optional dict that receives ``host_read_s``, the wall time
-    spent in the per-step read-back (it includes waiting for the device to
-    finish the step), ``stage_steps``, the steps run at the full batch
-    and in each drain stage, ``max_steps``, the step cap (reference
-    :1396-1399), and ``in_flight``, the lanes still alive when the loop
-    ended (non-zero only for a run stopped at its cap, whose photons in
-    flight tally no more).  Flux tallies come back unpacked as (Nxf,
+    ``stats``: optional dict that receives ``stage_steps``, the steps run
+    at the full batch and in each drain stage, ``max_steps``, the step cap
+    (reference :1396-1399), ``in_flight``, the lanes still alive when the
+    loop ended (non-zero only for a run stopped at its cap, whose photons
+    in flight tally no more), and, where the condition is read before every
+    step and no lane splits, ``lane_slots`` and ``idle_lanes``: the lane
+    slots of all steps, and those of them with no live photon (a step's
+    live lanes are those alive before it and those it launches, from the
+    two numbers read back).  Traced (:mod:`er3t_tpu_torch.util.trace`),
+    the loop records the spans ``flight.deviates``, ``flight.step``,
+    ``flight.read`` and ``flight.compact``, those counts as the counters
+    ``flight.lane_slots`` and ``flight.idle_lanes``, and the classes of
+    every active lane iteration (:data:`OUTCOMES`, counted on the device
+    and read once at the end) as ``flight.iter_outcome.<class>`` and in
+    ``stats['iter_outcome']``.  Flux tallies come back unpacked as (Nxf,
     Nyf, Nz+1, 3, Ng) (Ng -> 1 with the in-step contraction) with the
     deterministic TOA down-direct entry added (reference :1483-1497);
     ``rad_plen`` is the (Nxr, Nyr, Ng) pathlength-weighted image with
@@ -1229,30 +1262,30 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             b_s //= 8
     q_off = (torch.randint(0, kern.n_cell, (), generator=gen, device=dev)
              if kern.strat else 0)
+    if trace.enabled():
+        kern.outcome = torch.zeros(len(OUTCOMES), dtype=torch.int64,
+                                   device=dev)
+    # lane slots and idle lanes, where every step's live lanes are known
+    lanes = [0, 0] if cfg.sort_every == 0 and cfg.split_wmax <= 0 else None
 
-    def step(c, b):
-        kw = {}
-        u = draw_deviates(gen, b, dev)
-        if cfg.split_wmax > 0:
-            kw['u_split'] = draw_deviates(gen, b, dev, rows=1)[0]
-        if kern.cam_importance:
-            kw['u_imp'] = draw_deviates(gen, b, dev, rows=3)
-        return kern.step(c, u, q_off, **kw)
-
-    host_read_s = 0.0
-
-    def counts(c):
-        nonlocal host_read_s
-        t0 = time.perf_counter()
-        n_alive, launched = torch.stack(
-            [torch.sum(c.alive), c.launched]).tolist()
-        host_read_s += time.perf_counter() - t0
-        return n_alive, launched
+    def step(c, b, n_alive=None, launched=None):
+        if lanes is not None:
+            lanes[0] += b
+            lanes[1] += b - n_alive - min(b - n_alive, n - launched)
+        with trace.span('flight.deviates'):
+            kw = {}
+            u = draw_deviates(gen, b, dev)
+            if cfg.split_wmax > 0:
+                kw['u_split'] = draw_deviates(gen, b, dev, rows=1)[0]
+            if kern.cam_importance:
+                kw['u_imp'] = draw_deviates(gen, b, dev, rows=3)
+        with trace.span('flight.step'):
+            return kern.step(c, u, q_off, **kw)
 
     c = kern.carry0(cfg.batch)
     b1 = stages[0] if stages else None
     while True:
-        n_alive, launched = counts(c)
+        n_alive, launched = read_counts(c, dev)
         more = (n_alive > 0 or launched < n) and c.step < max_steps
         if b1 is not None:
             more = more and (launched < n or n_alive > b1)
@@ -1266,23 +1299,40 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             for _ in range(cfg.sort_every):
                 c = step(c, cfg.batch)
         else:
-            c = step(c, cfg.batch)
+            c = step(c, cfg.batch, n_alive, launched)
     lane_iters = c.step * cfg.batch
     stage_steps = [c.step]
     for si, b_s in enumerate(stages):
         prev = c.step
-        order = torch.argsort((~c.alive).to(_I), stable=True)
-        c = _take_lanes(c, order[:b_s])
+        with trace.span('flight.compact'):
+            order = torch.argsort((~c.alive).to(_I), stable=True)
+            c = _take_lanes(c, order[:b_s])
         nxt = stages[si + 1] if si + 1 < len(stages) else 0
-        while counts(c)[0] > nxt and c.step < max_steps:
-            c = step(c, b_s)
+        while True:
+            n_alive, launched = read_counts(c, dev)
+            if n_alive <= nxt or c.step >= max_steps:
+                break
+            c = step(c, b_s, n_alive, launched)
         lane_iters += (c.step - prev) * b_s
         stage_steps.append(c.step - prev)
 
+    if lanes is not None:
+        trace.count('flight.lane_slots', lanes[0])
+        trace.count('flight.idle_lanes', lanes[1])
+    outcome = None
+    if kern.outcome is not None:
+        real, tentative, *rest = kern.outcome.tolist()
+        outcome = dict(zip(OUTCOMES, [real, tentative - real, *rest]))
+        for k, v in outcome.items():
+            trace.count('flight.iter_outcome.' + k, v)
     if stats is not None:
-        in_flight = counts(c)[0]
-        stats.update(host_read_s=host_read_s, stage_steps=stage_steps,
-                     max_steps=max_steps, in_flight=in_flight)
+        in_flight = read_counts(c, dev)[0]
+        stats.update(stage_steps=stage_steps, max_steps=max_steps,
+                     in_flight=in_flight)
+        if lanes is not None:
+            stats.update(lane_slots=lanes[0], idle_lanes=lanes[1])
+        if outcome is not None:
+            stats['iter_outcome'] = outcome
     ng_r = 1 if kern.scalar_rad else st.ng
     if kern.radiance:
         flux = torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev)

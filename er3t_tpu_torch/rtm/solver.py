@@ -34,6 +34,7 @@ import torch
 
 from ..dist.decomp import transport_decomp
 from ..dist.photon import transport_photon_parallel
+from ..util import trace
 from . import out
 from .mc import SolverConfig, run_transport
 from .mc_flight import run_transport_flight
@@ -148,24 +149,27 @@ def _single_run(scene, static, cfg, n_photon, seed, device, chunk=4_000_000,
     i = 0
     while remaining > 0:
         n_c = min(remaining, chunk)
-        if mesh is not None:
-            dist_run = (transport_decomp if mesh.shape['x'] > 1
-                        else transport_photon_parallel)
-            tal = dist_run(scene, static, cfg, n_c, mesh,
-                           seed=seed + 7919 * i, flux_w=flux_w, rad_w=rad_w)
-        elif use_flight:
-            tal = run_transport_flight(scene, static, cfg, n_c,
-                                       seed + 7919 * i, device, flux_w=flux_w,
-                                       rad_w=rad_w)
-        else:
-            tal = run_transport(scene, static, cfg, n_c, seed + 7919 * i,
-                                device)
+        with trace.span('solve.flight'):
+            if mesh is not None:
+                dist_run = (transport_decomp if mesh.shape['x'] > 1
+                            else transport_photon_parallel)
+                tal = dist_run(scene, static, cfg, n_c, mesh,
+                               seed=seed + 7919 * i, flux_w=flux_w,
+                               rad_w=rad_w)
+            elif use_flight:
+                tal = run_transport_flight(scene, static, cfg, n_c,
+                                           seed + 7919 * i, device,
+                                           flux_w=flux_w, rad_w=rad_w)
+            else:
+                tal = run_transport(scene, static, cfg, n_c, seed + 7919 * i,
+                                    device)
         parts = (tal.rad, tal.flux, tal.absorbed, tal.rad_plen)
         sums = parts if sums is None else [a + b for a, b in zip(sums, parts)]
         n_total += int(tal.n_launched)
         remaining -= n_c
         i += 1
-    rad, flux, absorbed, rad_pl = (t.cpu().numpy() for t in sums)
+    with trace.span('solve.to_host'):
+        rad, flux, absorbed, rad_pl = (t.cpu().numpy() for t in sums)
     return rad, flux, absorbed, rad_pl, n_total
 
 
@@ -219,127 +223,145 @@ def solve(atm=None, abs_coef=None, cld=None, pha=None, aer_1ds=(), aer_3ds=(),
     circle; ``pathlength`` adds ``plen`` to radiance results.  ``mesh``:
     a mesh of ``er3t_tpu_torch.dist.mesh.make_mesh`` on whose ranks every
     pass runs (each rank takes a copy of the scene on its device)."""
-    if mode not in ('mean', 'all'):
-        raise ValueError(f"mode must be 'mean' or 'all'; got {mode!r}")
-    if atm is None or abs_coef is None:
-        raise ValueError('atm and abs_coef are required')
-    target = {'f': 'flux', 'flux': 'flux', 'irradiance': 'flux',
-              'rad': 'radiance', 'radiance': 'radiance',
-              'hr': 'heating_rate', 'heating rate': 'heating_rate',
-              'heating_rate': 'heating_rate'}[target.lower()]
-    solver = solver.lower()
-    if solver not in ('3d', 'p3d', 'ipa', '1d'):
-        raise ValueError(f"solver must be '3d', 'p3d' or 'ipa'; got {solver!r}")
-    ipa = solver in ('ipa', '1d')
-    cam = dict(xpos=0.5, ypos=0.5, zloc=0.0, phi=0.0, the=0.0, psi=0.0,
-               qmax=89.0, npix=64, apsize=0.0)
-    if camera:
-        unknown = set(camera) - set(cam)
-        if unknown:
-            raise ValueError(f'unknown camera parameter(s) {sorted(unknown)}; '
-                             f'valid keys: {sorted(cam)}')
-        cam.update(camera)
-        sensor_type = 'camera'
-    device = torch.device(device)
-    if batch is None:
-        batch = 1 << 17 if device.type == 'cuda' else 1 << 14
-    cfg = SolverConfig(
-        target='radiance' if target == 'radiance' else 'flux',
-        batch=int(batch),
-        sensor_zenith=float(sensor_zenith_angle),
-        sensor_azimuth=float(sensor_azimuth_angle),
-        flux_per_column=bool(flux_per_column),
-        tile_size=int(tile_size),
-        p3d_order=int(p3d_order) if solver == 'p3d' else 0,
-        cf_dtau=float(cf_dtau), pathlength=bool(pathlength),
-        sensor_type=sensor_type, flux_engine=flux_engine,
-        flux_kcross=int(flux_kcross), split_wmax=float(split_wmax),
-        rr_wmin=float(rr_wmin), n_scat_max=int(n_scat_max),
-        cam_xpos=float(cam['xpos']), cam_ypos=float(cam['ypos']),
-        cam_zloc=float(cam['zloc']), cam_phi=float(cam['phi']),
-        cam_the=float(cam['the']), cam_psi=float(cam['psi']),
-        cam_qmax=float(cam['qmax']), cam_npix=int(cam['npix']),
-        cam_apsize=float(cam['apsize']),
-        qmc_launch=bool(qmc_launch))
-    if spectral not in ('correlated', 'independent'):
-        raise ValueError(spectral)
+    with trace.span('solve', request=True):
+        if mode not in ('mean', 'all'):
+            raise ValueError(f"mode must be 'mean' or 'all'; got {mode!r}")
+        if atm is None or abs_coef is None:
+            raise ValueError('atm and abs_coef are required')
+        target = {'f': 'flux', 'flux': 'flux', 'irradiance': 'flux',
+                  'rad': 'radiance', 'radiance': 'radiance',
+                  'hr': 'heating_rate', 'heating rate': 'heating_rate',
+                  'heating_rate': 'heating_rate'}[target.lower()]
+        solver = solver.lower()
+        if solver not in ('3d', 'p3d', 'ipa', '1d'):
+            raise ValueError(
+                f"solver must be '3d', 'p3d' or 'ipa'; got {solver!r}")
+        ipa = solver in ('ipa', '1d')
+        cam = dict(xpos=0.5, ypos=0.5, zloc=0.0, phi=0.0, the=0.0, psi=0.0,
+                   qmax=89.0, npix=64, apsize=0.0)
+        if camera:
+            unknown = set(camera) - set(cam)
+            if unknown:
+                raise ValueError(
+                    f'unknown camera parameter(s) {sorted(unknown)}; '
+                    f'valid keys: {sorted(cam)}')
+            cam.update(camera)
+            sensor_type = 'camera'
+        device = torch.device(device)
+        if batch is None:
+            batch = 1 << 17 if device.type == 'cuda' else 1 << 14
+        cfg = SolverConfig(
+            target='radiance' if target == 'radiance' else 'flux',
+            batch=int(batch),
+            sensor_zenith=float(sensor_zenith_angle),
+            sensor_azimuth=float(sensor_azimuth_angle),
+            flux_per_column=bool(flux_per_column),
+            tile_size=int(tile_size),
+            p3d_order=int(p3d_order) if solver == 'p3d' else 0,
+            cf_dtau=float(cf_dtau), pathlength=bool(pathlength),
+            sensor_type=sensor_type, flux_engine=flux_engine,
+            flux_kcross=int(flux_kcross), split_wmax=float(split_wmax),
+            rr_wmin=float(rr_wmin), n_scat_max=int(n_scat_max),
+            cam_xpos=float(cam['xpos']), cam_ypos=float(cam['ypos']),
+            cam_zloc=float(cam['zloc']), cam_phi=float(cam['phi']),
+            cam_the=float(cam['the']), cam_psi=float(cam['psi']),
+            cam_qmax=float(cam['qmax']), cam_npix=int(cam['npix']),
+            cam_apsize=float(cam['apsize']),
+            qmc_launch=bool(qmc_launch))
+        if spectral not in ('correlated', 'independent'):
+            raise ValueError(spectral)
 
-    scene, static = build_scene(
-        atm, abs_coef, cld=cld, pha=pha, aer_1ds=aer_1ds, aer_3ds=aer_3ds,
-        surface=surface, solar_zenith_angle=solar_zenith_angle,
-        solar_azimuth_angle=solar_azimuth_angle, ipa=ipa,
-        forward_trunc_deg=forward_trunc_deg, pfpeak=pfpeak, device=device)
-    if flux_per_column is None:
-        cfg = dataclasses.replace(
-            cfg, flux_per_column=static.has_3d and target != 'heating_rate')
+        with trace.span('solve.scene'):
+            scene, static = build_scene(
+                atm, abs_coef, cld=cld, pha=pha, aer_1ds=aer_1ds,
+                aer_3ds=aer_3ds, surface=surface,
+                solar_zenith_angle=solar_zenith_angle,
+                solar_azimuth_angle=solar_azimuth_angle, ipa=ipa,
+                forward_trunc_deg=forward_trunc_deg, pfpeak=pfpeak,
+                device=device)
+        if flux_per_column is None:
+            cfg = dataclasses.replace(
+                cfg,
+                flux_per_column=static.has_3d and target != 'heating_rate')
 
-    mu0 = float(np.cos(np.deg2rad(solar_zenith_angle)))
-    # image deposits and the flight engine's clamped per-column crossings
-    # are contracted over g in the step (rad_w, flux_w), exactly equal to
-    # the contraction after; not the image of a pathlength run, whose ratio
-    # needs every g (reference :344-356)
-    rad_w = flux_w = None
-    if target == 'radiance':
-        if not pathlength:
-            rad_w = out.spectral_factors(abs_coef, date=date, nz_out=1)[0][0]
-    elif (cfg.flux_per_column and cfg.flux_kcross > 0
-          and flux_engine == 'flight'):
-        flux_w = out.spectral_factors(abs_coef, date=date,
-                                      nz_out=static.nz + 1)[0]
-    if qmc_launch and target != 'radiance' and flux_engine == 'marching':
-        warnings.warn('qmc_launch only affects the flight kernel; '
-                      "flux_engine='marching' launches uniformly",
-                      stacklevel=2)
-    per_run = []
-    n_eff = 0
-    for r in range(n_run):
-        if spectral == 'independent':
-            red, n_l = _independent_g_run(
-                scene, static, cfg, abs_coef, target, int(photons), mu0, date,
-                seed + 1000 * r, device, chunk=chunk, mesh=mesh)
-            n_eff += n_l
-            per_run.append(red)
-            continue
-        rad_t, flux_t, absd, rad_pl, n_l = _single_run(
-            scene, static, cfg, int(photons), seed + 1000003 * r, device,
-            chunk=chunk, flux_w=flux_w, rad_w=rad_w, mesh=mesh)
-        n_eff += n_l
+        mu0 = float(np.cos(np.deg2rad(solar_zenith_angle)))
+        # image deposits and the flight engine's clamped per-column
+        # crossings are contracted over g in the step (rad_w, flux_w),
+        # exactly equal to the contraction after; not the image of a
+        # pathlength run, whose ratio needs every g (reference :344-356)
+        rad_w = flux_w = None
         if target == 'radiance':
-            red = _reduce_image(rad_t, n_l, abs_coef, mu0, static, cfg, date,
-                                precontracted=rad_w is not None)
-            if pathlength:
-                red['plen'] = _plen_ratio(rad_t, rad_pl, abs_coef.weight)
-        else:
-            red = out.reduce_flux(flux_t, n_l, abs_coef, mu0, date=date,
-                                  precontracted=flux_w is not None)
-            if target == 'heating_rate' and absd.size > 1:
-                # the direct absorbed-energy tally where the run kept one
-                # (domain-average tallies)
-                red['hr'] = out.heating_rate_from_absorbed(
-                    absd, n_l, abs_coef, mu0, atm, date=date)
-        per_run.append(red)
-    if target == 'heating_rate':
-        # net-flux differencing where there is no direct tally (per-column
-        # tallies, the marching engine, the independent protocol), per run,
-        # so that hr_std and the runs of mode='all' carry it (reference
-        # :408-414)
-        for p in per_run:
-            if 'hr' not in p:
-                p['hr'] = out.heating_rate(p, atm)
+            if not pathlength:
+                rad_w = out.spectral_factors(abs_coef, date=date,
+                                             nz_out=1)[0][0]
+        elif (cfg.flux_per_column and cfg.flux_kcross > 0
+              and flux_engine == 'flight'):
+            flux_w = out.spectral_factors(abs_coef, date=date,
+                                          nz_out=static.nz + 1)[0]
+        if qmc_launch and target != 'radiance' and flux_engine == 'marching':
+            warnings.warn('qmc_launch only affects the flight kernel; '
+                          "flux_engine='marching' launches uniformly",
+                          stacklevel=2)
+        per_run = []
+        n_eff = 0
+        for r in range(n_run):
+            if spectral == 'independent':
+                red, n_l = _independent_g_run(
+                    scene, static, cfg, abs_coef, target, int(photons), mu0,
+                    date, seed + 1000 * r, device, chunk=chunk, mesh=mesh)
+                n_eff += n_l
+                per_run.append(red)
+                continue
+            rad_t, flux_t, absd, rad_pl, n_l = _single_run(
+                scene, static, cfg, int(photons), seed + 1000003 * r, device,
+                chunk=chunk, flux_w=flux_w, rad_w=rad_w, mesh=mesh)
+            n_eff += n_l
+            with trace.span('solve.reduce'):
+                if target == 'radiance':
+                    red = _reduce_image(rad_t, n_l, abs_coef, mu0, static,
+                                        cfg, date,
+                                        precontracted=rad_w is not None)
+                    if pathlength:
+                        red['plen'] = _plen_ratio(rad_t, rad_pl,
+                                                  abs_coef.weight)
+                else:
+                    red = out.reduce_flux(flux_t, n_l, abs_coef, mu0,
+                                          date=date,
+                                          precontracted=flux_w is not None)
+                    if target == 'heating_rate' and absd.size > 1:
+                        # the direct absorbed-energy tally where the run
+                        # kept one (domain-average tallies)
+                        red['hr'] = out.heating_rate_from_absorbed(
+                            absd, n_l, abs_coef, mu0, atm, date=date)
+            per_run.append(red)
+        with trace.span('solve.reduce'):
+            if target == 'heating_rate':
+                # net-flux differencing where there is no direct tally
+                # (per-column tallies, the marching engine, the independent
+                # protocol), per run, so that hr_std and the runs of
+                # mode='all' carry it (reference :408-414)
+                for p in per_run:
+                    if 'hr' not in p:
+                        p['hr'] = out.heating_rate(p, atm)
 
-    keys = [k for k in per_run[0] if k != 'toa']
-    data = {k: np.mean([p[k] for p in per_run], axis=0) for k in keys}
-    std = {k + '_std': np.std([p[k] for p in per_run], axis=0) for k in keys}
-    if diffusion > 0:
-        # numerical-diffusion smoothing of the mean per-column fields only
-        # (MCARaTS Flx_diff0/1, Rad_difr0/1; reference :421-427)
-        for k in list(data):
-            arr = np.asarray(data[k])
-            if arr.ndim >= 2 and arr.shape[0] > 1 and arr.shape[1] > 1:
-                data[k] = out.smooth_diffusion(arr, diffusion)
-    return Result(target=target, data=data, std=std, toa=per_run[0]['toa'],
-                  n_photon=photons, n_run=n_run, n_photon_effective=n_eff,
-                  runs=(per_run if mode == 'all' else []))
+            keys = [k for k in per_run[0] if k != 'toa']
+            data = {k: np.mean([p[k] for p in per_run], axis=0)
+                    for k in keys}
+            std = {k + '_std': np.std([p[k] for p in per_run], axis=0)
+                   for k in keys}
+            if diffusion > 0:
+                # numerical-diffusion smoothing of the mean per-column
+                # fields only (MCARaTS Flx_diff0/1, Rad_difr0/1; reference
+                # :421-427)
+                for k in list(data):
+                    arr = np.asarray(data[k])
+                    if arr.ndim >= 2 and arr.shape[0] > 1 \
+                            and arr.shape[1] > 1:
+                        data[k] = out.smooth_diffusion(arr, diffusion)
+        return Result(target=target, data=data, std=std,
+                      toa=per_run[0]['toa'], n_photon=photons, n_run=n_run,
+                      n_photon_effective=n_eff,
+                      runs=(per_run if mode == 'all' else []))
 
 
 def g_slice(scene, static, g):
@@ -391,10 +413,12 @@ def _independent_g_run(scene, static, cfg, abs_coef, target, n_photon, mu0,
             if acc_pl is None:
                 acc_pl = np.zeros_like(acc_rad)
             acc_pl[..., g] = rad_pl[..., 0] * wsc
-    if target == 'radiance':
-        red = _reduce_image(acc_rad, 1, abs_coef, mu0, static, cfg, date,
-                            precontracted=False)
-        if cfg.pathlength:
-            red['plen'] = _plen_ratio(acc_rad, acc_pl, abs_coef.weight)
-        return red, n_total
-    return out.reduce_flux(acc_flux, 1, abs_coef, mu0, date=date), n_total
+    with trace.span('solve.reduce'):
+        if target == 'radiance':
+            red = _reduce_image(acc_rad, 1, abs_coef, mu0, static, cfg, date,
+                                precontracted=False)
+            if cfg.pathlength:
+                red['plen'] = _plen_ratio(acc_rad, acc_pl, abs_coef.weight)
+            return red, n_total
+        return (out.reduce_flux(acc_flux, 1, abs_coef, mu0, date=date),
+                n_total)

@@ -1,1 +1,2 @@
-"""Utilities of the port: NumPy copies of ``er3t_tpu/util`` modules."""
+"""Utilities of the port: NumPy copies of ``er3t_tpu/util`` modules, and
+the port's own spans and counters (:mod:`.trace`)."""

@@ -30,7 +30,7 @@ PORT_MODULES = ('er3t_tpu_torch', 'er3t_tpu_torch._build',
                 'er3t_tpu_torch.physics.rayleigh',
                 'er3t_tpu_torch.physics.solar',
                 'er3t_tpu_torch.physics.water', 'er3t_tpu_torch.util',
-                'er3t_tpu_torch.util.grid',
+                'er3t_tpu_torch.util.grid', 'er3t_tpu_torch.util.trace',
                 'er3t_tpu_torch.rtm', 'er3t_tpu_torch.rtm.mc',
                 'er3t_tpu_torch.rtm.scene', 'er3t_tpu_torch.rtm.brdf',
                 'er3t_tpu_torch.rtm.phase_pair', 'er3t_tpu_torch.rtm.mc_flight',
