@@ -1,0 +1,12 @@
+"""flight.graph_step_pct: steps replayed from captured CUDA graphs over
+all steps of the window's flights, in percent (the program's
+``stats['graph_steps']`` and ``stats['stage_steps']``); nothing where the
+program does not count them."""
+
+
+def read(run):
+    st = [f['stats'] for r in run.requests for f in r.flights]
+    if not st or any('graph_steps' not in s for s in st):
+        return None
+    steps = sum(sum(s['stage_steps']) for s in st)
+    return 100.0 * sum(s['graph_steps'] for s in st) / steps if steps else None

@@ -129,11 +129,12 @@ def _sensor_dir(cfg: SolverConfig):
 
 
 def draw_deviates(gen: torch.Generator, batch: int, device,
-                  rows: int = 14) -> torch.Tensor:
+                  rows: int = 14, out=None) -> torch.Tensor:
     """(rows, batch) uniforms mapped to [1e-7, 1-1e-7] as
     ``jax.random.uniform`` maps them (``u * (hi - lo) + lo``, then
-    ``max(lo, .)``)."""
-    u = torch.rand((rows, batch), generator=gen, dtype=_F, device=device)
+    ``max(lo, .)``); drawn into ``out`` where given (the same numbers)."""
+    u = torch.rand((rows, batch), generator=gen, dtype=_F, device=device,
+                   out=out)
     return u.mul_(float(_U_HI - _U_LO)).add_(float(_U_LO)) \
         .clamp_(min=float(_U_LO))
 

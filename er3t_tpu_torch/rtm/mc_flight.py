@@ -16,7 +16,12 @@ differs is the execution shape:
   packages from one carry.
 * the loop runs in Python; its condition reads two numbers back from the
   device once per step, or once per block of ``sort_every`` steps (the
-  cost is recorded in PERF.md).
+  cost is recorded in PERF.md).  On the card the step's kernels are not
+  issued one by one: :meth:`FlightKernel.step` is cut at the phase-pair
+  kernel into :meth:`~FlightKernel._step_pre` and
+  :meth:`~FlightKernel._step_post`, captured once per batch width as two
+  CUDA graphs (:class:`_StepGraphs`) and replayed, with the kernel
+  launched between them.
 * drain compaction and lane sorting permute each lane field with one
   ``argsort``; the port carries int lanes as int tensors, so no f32
   lane-matrix packing (and no 2^24 guard) is needed.
@@ -132,6 +137,50 @@ _LANE_FIELDS = ('x', 'y', 'z', 'ux', 'uy', 'uz', 'wsc', 'labs', 'tau',
                 'nscat', 'alive', 'ix0', 'iy0', 'plen', 'direct')
 
 
+class _Mid(NamedTuple):
+    """The locals of a step that :meth:`FlightKernel._step_post` reads,
+    as :meth:`FlightKernel._step_pre` leaves them (the lanes after the
+    flight, the collision's outcome and channel, the sensor's
+    attenuation terms)."""
+    c: FlightCarry           # the step's input carry (tallies, step count)
+    u: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    ux: torch.Tensor
+    uy: torch.Tensor
+    uz: torch.Tensor
+    wsc: torch.Tensor
+    labs: torch.Tensor
+    tau: torch.Tensor
+    nscat: torch.Tensor
+    alive: torch.Tensor
+    ix0: torch.Tensor
+    iy0: torch.Tensor
+    plen: torch.Tensor
+    direct: torch.Tensor
+    launched: torch.Tensor
+    active: torch.Tensor
+    accept: torch.Tensor
+    collided: torch.Tensor
+    hit_sfc: torch.Tensor
+    exit_toa: torch.Tensor
+    tclamp: torch.Tensor
+    zclamp: torch.Tensor
+    clamped: torch.Tensor | None
+    ix: torch.Tensor
+    l_col: torch.Tensor
+    vt: torch.Tensor
+    z_hi_col: torch.Tensor
+    tau3_above: torch.Tensor
+    tau_sens_abs: torch.Tensor
+    tau_sens_sig: torch.Tensor
+    ssa_ev: torch.Tensor
+    apf: torch.Tensor
+    mu_sc: torch.Tensor
+    cam: tuple | None        # the camera's (r_cam, wsx_c, wsy_c, wsz_c)
+
+
 def _take_lanes(c: FlightCarry, idx: torch.Tensor) -> FlightCarry:
     """The lanes ``idx`` of every per-lane field (``labs`` along dim 1)."""
     return c._replace(**{f: (getattr(c, f)[:, idx] if f == 'labs'
@@ -216,9 +265,16 @@ class FlightKernel:
     a tentative one (real or null), a surface hit, a TOA escape, and a
     flight stopped short at a crossing-count, tile or slab clamp (the
     caller sets it; it draws no deviate and changes no tally).
+
+    ``graphs``: ``None`` (every step runs eagerly), or a dict, from batch
+    width to :class:`_StepGraphs`, through which :meth:`step` replays
+    captured CUDA graphs (the caller sets it; :func:`transport_flight`
+    does on the card).  ``graph_stats`` counts the graphs captured, the
+    steps replayed and the steps run eagerly while replaying.
     """
 
     outcome = None
+    graphs = None
 
     def __init__(self, scene: SceneArrays, st: SceneStatic,
                  cfg: SolverConfig, n_photon: int, rad_w=None, flux_w=None,
@@ -226,6 +282,7 @@ class FlightKernel:
                  spawn_reserve: int = 0):
         self.scene, self.st, self.cfg = scene, st, cfg
         self.n_photon = int(n_photon)
+        self.graph_stats = {'captures': 0, 'replays': 0, 'eager_steps': 0}
         # profiling stand-ins (reference :310): see SolverConfig.ablate
         self.ablate = set(cfg.ablate.split(',')) if cfg.ablate else set()
         dev = self.device = scene.z_lev.device
@@ -531,7 +588,7 @@ class FlightKernel:
     def step(self, c: FlightCarry, u: torch.Tensor, q_off, u_split=None,
              u_imp=None) -> FlightCarry:
         """One loop body (reference :376-1278) for ``B = c.x.shape[0]``
-        lanes.
+        lanes: :meth:`_step_pre`, the phase-pair kernel, :meth:`_step_post`.
 
         ``u``: (14, B) f32 deviates in [1e-7, 1-1e-7]; ``q_off``: the
         stratified-launch cell offset (int or 0-d integer tensor);
@@ -543,7 +600,42 @@ class FlightKernel:
         accumulated IN PLACE (``index_add_``), so the returned carry shares
         them with ``c``.  On the card those deposits run as atomics in a
         varying order, so tallies differ in the last bits from run to run.
+
+        Where ``graphs`` is a dict (:func:`transport_flight` on the card),
+        the first step at each batch width runs as above and every later
+        one replays that width's captured halves (:class:`_StepGraphs`):
+        the same kernels on the same deviates, issued as two CUDA graphs
+        with K1 launched between them.  The returned carry's lane fields
+        and ``launched`` are then the graphs' own buffers, which the next
+        step at that width overwrites.
         """
+        g = None
+        if self.graphs is not None:
+            b = c.x.shape[0]
+            g = self.graphs.get(b)
+            if g is None:
+                self.graphs[b] = _StepGraphs(self, c, u, u_split, u_imp)
+                self.graph_stats['eager_steps'] += 1
+        if g is not None:
+            return g.run(c, u, q_off, u_split, u_imp)
+        k1, mid = self._step_pre(c, u, q_off, u_split, u_imp)
+        return self._step_post(mid, *(k1 if 'phase' in self.ablate
+                                      else phase_pair(*k1)))
+
+    def deviate_buffers(self, b: int) -> dict:
+        """The buffers from which the replayed step at batch width ``b``
+        reads its deviates (``'u'``, ``'u_split'`` as (1, B), ``'u_imp'``),
+        for the caller to draw into; empty where that width has none."""
+        g = self.graphs.get(b) if self.graphs is not None else None
+        return g.inputs if g is not None else {}
+
+    def _step_pre(self, c: FlightCarry, u: torch.Tensor, q_off, u_split=None,
+                  u_imp=None):
+        """The step up to K1 (split, respawn, the flight with its flux
+        tallies, the collision's channel and the cosine toward the sensor).
+        Returns ``(k1, mid)``: K1's six arguments (under the ``'phase'``
+        ablation its stand-in results), and the locals that
+        :meth:`_step_post` reads."""
         st, cfg = self.st, self.cfg
         nz, ng = st.nz, st.ng
         dx, dy, lx, ly = st.dx, st.dy, self.lx, self.ly
@@ -1027,12 +1119,36 @@ class FlightKernel:
         if 'phase' in self.ablate:
             # profiling (reference :348-349, 357-358, 1051): the Rayleigh
             # evaluation and a uniform cosine; the kernel is not launched
-            pe_pair, mu_new = 0.75 * (1.0 + mu_sc * mu_sc), u[5] * 2.0 - 1.0
+            k1 = (0.75 * (1.0 + mu_sc * mu_sc), u[5] * 2.0 - 1.0)
         else:
             row_e = apf + direct.to(_I) * self.n_pf
-            pe_pair, mu_new = phase_pair(apf, row_e, mu_sc,
-                                         u[5].contiguous(), self.pt_p,
-                                         self.pt_mu)
+            k1 = (apf, row_e, mu_sc, u[5].contiguous(), self.pt_p, self.pt_mu)
+        return k1, _Mid(
+            c=c, u=u, x=x, y=y, z=z, ux=ux, uy=uy, uz=uz, wsc=wsc, labs=labs,
+            tau=tau, nscat=nscat, alive=alive, ix0=ix0, iy0=iy0, plen=plen,
+            direct=direct, launched=launched, active=active, accept=accept,
+            collided=collided, hit_sfc=hit_sfc, exit_toa=exit_toa,
+            tclamp=tclamp, zclamp=zclamp, clamped=clamped, ix=ix, l_col=l_col,
+            vt=vt, z_hi_col=z_hi_col, tau3_above=tau3_above,
+            tau_sens_abs=tau_sens_abs, tau_sens_sig=tau_sens_sig,
+            ssa_ev=ssa_ev, apf=apf, mu_sc=mu_sc,
+            cam=(r_cam, wsx_c, wsy_c, wsz_c) if self.camera else None)
+
+    def _step_post(self, mid: _Mid, pe_pair, mu_new) -> FlightCarry:
+        """The step from K1's results (``pe_pair``, ``mu_new``) on: the
+        local estimates, the turn and the roulette; ``mid`` as
+        :meth:`_step_pre` returns it."""
+        st, cfg = self.st, self.cfg
+        ng = st.ng
+        dx, lx, ly = st.dx, self.lx, self.ly
+        sx, sy, mu_s = self.sx, self.sy, self.mu_s
+        (c, u, x, y, z, ux, uy, uz, wsc, labs, tau, nscat, alive, ix0, iy0,
+         plen, direct, launched, active, accept, collided, hit_sfc, exit_toa,
+         tclamp, zclamp, clamped, ix, l_col, vt, z_hi_col, tau3_above,
+         tau_sens_abs, tau_sens_sig, ssa_ev, apf, mu_sc, cam) = mid
+        if self.camera:
+            r_cam, wsx_c, wsy_c, wsz_c = cam
+        flux, absorbed = c.flux, c.absorbed
 
         # ---------------- local estimates ----------------
         trace.phase('step.estimate')
@@ -1217,6 +1333,110 @@ class FlightKernel:
         return contrib, px.long() * npix + py
 
 
+# one side stream a device for every capture (a capture cannot use the
+# default stream): each stream that runs a matmul keeps a cuBLAS workspace
+# (32 MiB on the H100) for the life of the process
+_CAPTURE_STREAMS = {}
+
+
+class _StepGraphs:
+    """The flight step at one batch width as two captured CUDA graphs.
+
+    Issued one by one from Python, the step's ~600-720 small kernels keep
+    the card idle most of the step.  Graph ``pre`` is
+    :meth:`FlightKernel._step_pre` on static lanes and deviates; the
+    phase-pair kernel (K1) is then launched eagerly on its outputs, through
+    this module's ``phase_pair`` as in the eager step, and its results are
+    copied to where graph ``post`` reads them; ``post`` is
+    :meth:`FlightKernel._step_post` and ends by copying the new lanes into
+    the static lanes, so the carry it leaves is the next step's input.
+    Under the ``'phase'`` ablation ``post`` reads ``pre``'s stand-in pair.
+
+    The tallies, the outcome counts and ``q_off`` are captured where they
+    lie; a carry that holds them elsewhere is captured anew.  Lanes and
+    deviates handed in from elsewhere (the first replayed step, after a
+    drain compaction or a lane sort) are copied in first.  Both graphs of
+    a capture share one private memory pool, freed with them."""
+
+    def __init__(self, kern: FlightKernel, c: FlightCarry, u, u_split,
+                 u_imp):
+        self.kern = kern
+        self.lanes = {f: torch.empty_like(getattr(c, f))
+                      for f in _LANE_FIELDS + ('launched',)}
+        self.inputs = {'u': torch.empty_like(u)}
+        if u_split is not None:
+            self.inputs['u_split'] = u_split.new_empty((1, u_split.shape[0]))
+        if u_imp is not None:
+            self.inputs['u_imp'] = torch.empty_like(u_imp)
+        self.pair = (torch.empty_like(c.x), torch.empty_like(c.x))
+        # what the graphs were captured with: the tallies they deposit into
+        # (and the key of their addresses), their memory pool
+        self.key = self.tallies = self.pool = None
+        self.pre = self.post = self.k1 = self.mid = None
+
+    def run(self, c: FlightCarry, u, q_off, u_split, u_imp) -> FlightCarry:
+        """One step of ``c`` by replay (see :meth:`FlightKernel.step`)."""
+        kern = self.kern
+        for f, t in self.lanes.items():
+            v = getattr(c, f)
+            if v is not t:
+                t.copy_(v)
+        for name, v in (('u', u), ('u_split', u_split), ('u_imp', u_imp)):
+            if v is not None and v.data_ptr() != self.inputs[name].data_ptr():
+                self.inputs[name].copy_(v)
+        key = tuple(t.data_ptr() if isinstance(t, torch.Tensor) else t
+                    for t in (c.rad, c.rad_pl, c.flux, c.absorbed,
+                              kern.outcome, q_off))
+        if key != self.key:
+            self._capture_halves(c, q_off)
+            self.key = key
+        self.pre.replay()
+        if 'phase' not in kern.ablate:
+            for t, v in zip(self.pair, phase_pair(*self.k1)):
+                t.copy_(v)
+        self.post.replay()
+        kern.graph_stats['replays'] += 1
+        return c._replace(step=c.step + 1, **self.lanes)
+
+    def _capture_halves(self, c: FlightCarry, q_off):
+        kern, inp = self.kern, self.inputs
+        carry = c._replace(**self.lanes)
+        self.tallies = (c.rad, c.rad_pl, c.flux, c.absorbed)
+        u_split = inp['u_split'][0] if 'u_split' in inp else None
+        self.pool = None
+
+        def post():
+            out = kern._step_post(self.mid, *(
+                self.k1 if 'phase' in kern.ablate else self.pair))
+            for f, t in self.lanes.items():
+                t.copy_(getattr(out, f))
+
+        with trace.span('flight.graph.capture'):
+            self.pre, (self.k1, self.mid) = self._capture(
+                lambda: kern._step_pre(carry, inp['u'], q_off, u_split,
+                                       inp.get('u_imp')))
+        with trace.span('flight.graph.capture'):
+            self.post, _ = self._capture(post)
+        kern.graph_stats['captures'] += 2
+
+    def _capture(self, fn):
+        """``fn()`` recorded, not run, as a CUDA graph in this width's
+        memory pool, on the device's capture stream; returns (graph, its
+        results)."""
+        g = torch.cuda.CUDAGraph()
+        dev = self.kern.device
+        if dev not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        with torch.cuda.stream(_CAPTURE_STREAMS[dev]):
+            g.capture_begin(pool=self.pool)
+            try:
+                out = fn()
+            finally:
+                g.capture_end()
+        self.pool = g.pool()
+        return g, out
+
+
 def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
                      n_photon: int, gen: torch.Generator, flux_w=None,
                      rad_w=None, stats: dict | None = None) -> Tallies:
@@ -1238,10 +1458,19 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     step and no lane splits, ``lane_slots`` and ``idle_lanes``: the lane
     slots of all steps, and those of them with no live photon (a step's
     live lanes are those alive before it and those it launches, from the
-    two numbers read back).  Traced (:mod:`er3t_tpu_torch.util.trace`),
+    two numbers read back), and ``graph_steps``, the steps replayed from
+    captured CUDA graphs.  On the card the step replays: the first step at
+    each batch width runs eagerly, every later one replays that width's
+    two graphs (:meth:`FlightKernel.step`), into whose buffers the loop
+    draws the deviates; the graphs and their memory are freed before the
+    flight returns.  Traced (:mod:`er3t_tpu_torch.util.trace`),
     the loop records the spans ``flight.deviates``, ``flight.step``,
-    ``flight.read`` and ``flight.compact``, those counts as the counters
-    ``flight.lane_slots`` and ``flight.idle_lanes``, and the classes of
+    ``flight.read`` and ``flight.compact`` (and ``flight.graph.capture``
+    around each graph's capture), those counts as the counters
+    ``flight.lane_slots`` and ``flight.idle_lanes``, the graphs captured,
+    the steps replayed and the steps run eagerly while replaying as
+    ``flight.graph.captures``, ``flight.graph.replays`` and
+    ``flight.graph.eager_steps``, and the classes of
     every active lane iteration (:data:`OUTCOMES`, counted on the device
     and read once at the end) as ``flight.iter_outcome.<class>`` and in
     ``stats['iter_outcome']``.  Flux tallies come back unpacked as (Nxf,
@@ -1274,51 +1503,65 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             lanes[1] += b - n_alive - min(b - n_alive, n - launched)
         with trace.span('flight.deviates'):
             kw = {}
-            u = draw_deviates(gen, b, dev)
+            buf = kern.deviate_buffers(b)
+            u = draw_deviates(gen, b, dev, out=buf.get('u'))
             if cfg.split_wmax > 0:
-                kw['u_split'] = draw_deviates(gen, b, dev, rows=1)[0]
+                kw['u_split'] = draw_deviates(
+                    gen, b, dev, rows=1, out=buf.get('u_split'))[0]
             if kern.cam_importance:
-                kw['u_imp'] = draw_deviates(gen, b, dev, rows=3)
+                kw['u_imp'] = draw_deviates(gen, b, dev, rows=3,
+                                            out=buf.get('u_imp'))
         with trace.span('flight.step'):
             return kern.step(c, u, q_off, **kw)
 
-    c = kern.carry0(cfg.batch)
-    b1 = stages[0] if stages else None
-    while True:
-        n_alive, launched = read_counts(c, dev)
-        more = (n_alive > 0 or launched < n) and c.step < max_steps
-        if b1 is not None:
-            more = more and (launched < n or n_alive > b1)
-        if not more:
-            break
-        if cfg.sort_every > 0:
-            # a sort, then a block of steps; the condition is checked per
-            # block (a few steps of overshoot in the drain tail are
-            # harmless: dead lanes tally nothing)
-            c = _sort_lanes(c, st)
-            for _ in range(cfg.sort_every):
-                c = step(c, cfg.batch)
-        else:
-            c = step(c, cfg.batch, n_alive, launched)
-    lane_iters = c.step * cfg.batch
-    stage_steps = [c.step]
-    for si, b_s in enumerate(stages):
-        prev = c.step
-        with trace.span('flight.compact'):
-            order = torch.argsort((~c.alive).to(_I), stable=True)
-            c = _take_lanes(c, order[:b_s])
-        nxt = stages[si + 1] if si + 1 < len(stages) else 0
+    if dev.type == 'cuda':
+        # replay the step's kernels as captured graphs (FlightKernel.step)
+        kern.graphs = {}
+    try:
+        c = kern.carry0(cfg.batch)
+        b1 = stages[0] if stages else None
         while True:
             n_alive, launched = read_counts(c, dev)
-            if n_alive <= nxt or c.step >= max_steps:
+            more = (n_alive > 0 or launched < n) and c.step < max_steps
+            if b1 is not None:
+                more = more and (launched < n or n_alive > b1)
+            if not more:
                 break
-            c = step(c, b_s, n_alive, launched)
-        lane_iters += (c.step - prev) * b_s
-        stage_steps.append(c.step - prev)
+            if cfg.sort_every > 0:
+                # a sort, then a block of steps; the condition is checked per
+                # block (a few steps of overshoot in the drain tail are
+                # harmless: dead lanes tally nothing)
+                c = _sort_lanes(c, st)
+                for _ in range(cfg.sort_every):
+                    c = step(c, cfg.batch)
+            else:
+                c = step(c, cfg.batch, n_alive, launched)
+        lane_iters = c.step * cfg.batch
+        stage_steps = [c.step]
+        for si, b_s in enumerate(stages):
+            prev = c.step
+            with trace.span('flight.compact'):
+                order = torch.argsort((~c.alive).to(_I), stable=True)
+                c = _take_lanes(c, order[:b_s])
+            nxt = stages[si + 1] if si + 1 < len(stages) else 0
+            while True:
+                n_alive, launched = read_counts(c, dev)
+                if n_alive <= nxt or c.step >= max_steps:
+                    break
+                c = step(c, b_s, n_alive, launched)
+            lane_iters += (c.step - prev) * b_s
+            stage_steps.append(c.step - prev)
+    finally:
+        if kern.graphs:
+            # drop the graphs, and free their memory pools
+            kern.graphs.clear()
+            torch.cuda.empty_cache()
 
     if lanes is not None:
         trace.count('flight.lane_slots', lanes[0])
         trace.count('flight.idle_lanes', lanes[1])
+    for k, v in kern.graph_stats.items():
+        trace.count('flight.graph.' + k, v)
     outcome = None
     if kern.outcome is not None:
         real, tentative, *rest = kern.outcome.tolist()
@@ -1328,7 +1571,8 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     if stats is not None:
         in_flight = read_counts(c, dev)[0]
         stats.update(stage_steps=stage_steps, max_steps=max_steps,
-                     in_flight=in_flight)
+                     in_flight=in_flight,
+                     graph_steps=kern.graph_stats['replays'])
         if lanes is not None:
             stats.update(lane_slots=lanes[0], idle_lanes=lanes[1])
         if outcome is not None:

@@ -30,6 +30,8 @@ The spans, from the request down (``solve.*`` in ``rtm/solver.py``,
         flight.step            one FlightKernel.step (or marching step)
           step.split, step.respawn, step.move, step.collide,
           step.estimate, step.turn, step.roulette
+                               (on the card: only while capturing)
+          flight.graph.capture   one captured half of a replayed step
         flight.read            the loop's per-step read-back:
           flight.read.wait       until the device has done the queued work
           flight.read.copy       the two numbers to the host
@@ -42,7 +44,10 @@ Counters: ``flight.lane_slots`` and ``flight.idle_lanes`` (lane slots of
 the flight steps, and those with no live photon) and
 ``flight.iter_outcome.<class>`` (each active lane iteration of a flight
 step as ``real``, ``null`` collision, ``surface`` hit, ``toa`` escape or
-``stopped`` short of its end at a crossing or slab clamp); see
+``stopped`` short of its end at a crossing or slab clamp) and
+``flight.graph.captures``, ``flight.graph.replays`` and
+``flight.graph.eager_steps`` (the CUDA graphs captured, the steps replayed
+from them, the steps run eagerly while replaying); see
 :func:`~er3t_tpu_torch.rtm.mc_flight.transport_flight`.
 
 Memory grows with the spans recorded (about a dozen a flight step), until

@@ -27,6 +27,7 @@ from er3t_tpu_torch.rtm.out import spectral_factors
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
 from er3t_tpu_torch.rtm.quasi import quasi_radiance
 from er3t_tpu_torch.rtm.scene import build_scene
+from er3t_tpu_torch.util import trace
 
 torch.set_num_threads(2)
 
@@ -284,6 +285,101 @@ def test_mode_step_on_card_matches_cpu(cuda, mode):
         c = ref
     assert float(c.rad.sum() + c.flux.sum()) > 0
 
+
+
+GRAPH_MODES = {
+    'radiance_mie_rad_w': dict(target='radiance'),
+    'flux_kx4_flux_w': dict(target='flux', flux_per_column=True,
+                            flux_kcross=4),
+    'heating_rate': dict(target='flux', flux_per_column=False),
+    'camera': dict(target='radiance', sensor_type='camera', cam_zloc=8000.0,
+                   cam_the=180.0, cam_qmax=60.0, cam_npix=16,
+                   cam_apsize=50.0, pathlength=True),
+    'ipa': dict(target='radiance'),
+    'camera_importance': dict(target='radiance', sensor_type='camera',
+                              cam_npix=16, cam_importance_sigma=500.0),
+    'split_rr_value': dict(target='radiance', split_wmax=0.5, rr_value=0.1),
+}
+_MIE = []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', list(GRAPH_MODES))
+def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
+    """One seed through transport_flight on the 32x32 broken-cloud scene
+    with Mie tables (TMS rows), 2^14 lanes draining to 2048 and 256, once
+    with the step replayed from captured graphs and once eagerly: the same
+    photons along the same paths (stage steps, steps, launches, lane
+    iterations, outcome counts, K1 once a step), tallies within 1e-5 of
+    their largest entry (the order of the deposits' atomics), one eager
+    step and two captures per batch width, and the graphs' memory freed
+    when the flight returns."""
+    atm, ab, kw = _broken_inputs()
+    if not _MIE:
+        _MIE.append(pha_mie_wc(650.0))
+    scene, st = build_scene(atm, ab, **kw, pha=_MIE[0], device=cuda)
+    if mode == 'ipa':
+        st = dataclasses.replace(st, ipa=True)
+    cfg = SolverConfig(batch=1 << 14, n_scat_max=300, tile_size=16,
+                       qmc_launch=True, **GRAPH_MODES[mode])
+    extra = {}
+    if cfg.target == 'radiance' and cfg.sensor_type != 'camera':
+        extra['rad_w'] = spectral_factors(ab, nz_out=1)[0][0]
+    if cfg.flux_kcross:
+        extra['flux_w'] = spectral_factors(ab, nz_out=st.nz + 1)[0]
+
+    def flight():
+        stats = {}
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(17)
+        k1 = phase_pair.launches
+        trace.reset()
+        trace.enable()
+        try:
+            tal = mc_flight.transport_flight(scene, st, cfg, 100000, gen,
+                                             stats=stats, **extra)
+            torch.cuda.synchronize()
+            ctr = trace.report()['counters']
+        finally:
+            trace.enable(False)
+            trace.reset()
+        return tal, stats, ctr, phase_pair.launches - k1
+
+    step = mc_flight.FlightKernel.step
+
+    def eager_step(kern, c, *a, **k):
+        kern.graphs = None
+        return step(kern, c, *a, **k)
+
+    with monkeypatch.context() as m:
+        m.setattr(mc_flight.FlightKernel, 'step', eager_step)
+        ref, ref_stats, ref_ctr, ref_k1 = flight()
+    assert ref_stats['graph_steps'] == 0 == ref_ctr['flight.graph.captures']
+    # twice: the first graphed flight of a process also leaves the capture
+    # stream's cuBLAS workspace (32 MiB), as a first matmul on any stream
+    for k in range(2):
+        base = torch.cuda.memory_allocated()
+        got, stats, ctr, k1 = flight()
+        grown = torch.cuda.memory_allocated() - base
+        steps = int(got.n_steps)
+        assert len(stats['stage_steps']) == 3
+        assert all(n >= 2 for n in stats['stage_steps'])
+        assert stats['stage_steps'] == ref_stats['stage_steps']
+        assert stats['iter_outcome'] == ref_stats['iter_outcome']
+        assert steps == int(ref.n_steps) == sum(stats['stage_steps'])
+        assert int(got.n_launched) == int(ref.n_launched) == 100000
+        assert float(got.lane_iters) == float(ref.lane_iters)
+        assert k1 == ref_k1 == steps
+        assert stats['graph_steps'] == steps - 3 == ctr['flight.graph.replays']
+        assert ctr['flight.graph.captures'] == 6
+        assert ctr['flight.graph.eager_steps'] == 3
+        for f in ('rad', 'flux', 'absorbed', 'rad_plen'):
+            a, b = getattr(got, f).double(), getattr(ref, f).double()
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=1e-5 * float(b.abs().max()),
+                                       msg=f)
+        assert grown < (4 << 20 if k else 80 << 20), (k, grown)
+    assert float(got.rad.sum() + got.flux.sum()) > 0
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('wvl', [650.0, 1600.0])
