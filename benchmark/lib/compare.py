@@ -14,6 +14,20 @@ standard error, worked out the same way from the batches' domain means.
 It pools every pixel, so a scale error of a part in a hundred reads
 several errors, where each strip's own noise hides it.
 
+Fields of other shapes:
+
+* a field marked ``"domain": true`` is averaged over the domain on both
+  sides first (the program's domain-average tallies are a (1, 1) image,
+  the reference's per-column crossings are averaged per batch), and only
+  ``<field>.mean_z`` is read;
+* a profile (a 1-D field, such as ``hr`` of (Nz,)): ``<field>.
+  profile_z_rms``, the root mean square over its entries of each entry's
+  gap in standard errors, and ``<field>.mean_z`` of its mean over entries;
+* pixels that are NaN in the reference (outside a fisheye camera's
+  circle) are left out of the strips and means on both sides; a NaN of the
+  program anywhere else makes every number of that field NaN, which fails
+  (a domain average takes the NaN along).
+
 Beside them ``photons_missing``: the photons that the requests asked for
 and the program did not launch, summed over the window's requests (a
 budget is exact); and ``photons_cut_ppm``: the photons still in flight
@@ -23,24 +37,33 @@ have tallied, per million photons asked.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 
 __all__ = ['field_images', 'numbers', 'judge']
 
 
 def field_images(result_data, fields):
-    """{field name: (Nx, Ny) float64 image} of one solve result's data."""
+    """{field name: float64 image} of one solve result's data: (Nx, Ny), a
+    (1, 1) domain average, or a profile."""
     out = {}
     for f in fields:
         a = np.asarray(result_data[f['key']], dtype=np.float64)
         if 'level' in f:
             a = a[..., f['level']]
+        if f.get('domain'):
+            a = np.full((1, 1), np.mean(a))
         out[f['name']] = a
     return out
 
 
-def _strips(img):
-    return np.concatenate([img.mean(axis=1), img.mean(axis=0)])
+def _strips(img, mean=np.mean):
+    return np.concatenate([mean(img, axis=1), mean(img, axis=0)])
+
+
+def _rms(z):
+    return float(np.sqrt(np.mean(z ** 2)))
 
 
 def _z(prog, ref_batches, n_prog, n_ref_batch):
@@ -66,13 +89,36 @@ def numbers(prog_images, n_prog, ref_batches, n_ref_batch, fields,
         name = f['name']
         p = np.mean(prog_images[name], axis=0)
         rb = np.stack(ref_batches[name])
-        z = _z(_strips(p), np.stack([_strips(b) for b in rb]), n_prog,
-               n_ref_batch)
-        out[f'{name}.strip_z_rms'] = float(np.sqrt(np.mean(z ** 2)))
-        zm = _z(np.array([p.mean()]), rb.mean(axis=(1, 2))[:, None], n_prog,
+        mean = np.mean
+        masked = np.isnan(rb).any(axis=0)
+        stray = bool(np.isnan(p[~masked]).any())
+        if masked.any():
+            p, rb = np.where(masked, np.nan, p), np.where(masked, np.nan, rb)
+            mean = _nanmean
+        got = {}
+        if p.ndim == 1:
+            z = _z(p, rb, n_prog, n_ref_batch)
+            got[f'{name}.profile_z_rms'] = _rms(z)
+        elif p.size > 1:
+            z = _z(_strips(p, mean), np.stack([_strips(b, mean) for b in rb]),
+                   n_prog, n_ref_batch)
+            got[f'{name}.strip_z_rms'] = _rms(z)
+        zm = _z(np.array([mean(p)]),
+                mean(rb, axis=tuple(range(1, rb.ndim)))[:, None], n_prog,
                 n_ref_batch)
-        out[f'{name}.mean_z'] = float(abs(zm[0])) if zm.size else np.inf
+        got[f'{name}.mean_z'] = float(abs(zm[0])) if zm.size else np.inf
+        # a program NaN where the reference has a number would otherwise
+        # drop out of the masked strips and means
+        out.update({k: np.nan for k in got} if stray else got)
     return out
+
+
+def _nanmean(a, axis=None):
+    """``np.nanmean``, quiet where a whole strip lies outside the image (its
+    NaN then drops out of :func:`_z`)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        return np.nanmean(a, axis=axis)
 
 
 def judge(values, limits):

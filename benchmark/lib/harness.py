@@ -8,7 +8,9 @@ starts while less than ``seconds`` have passed; the one in flight at the
 close runs to its end and counts.  After the window the plain reference
 (``benchmark/reference``), seeded from ``--seed``, traces its own photons
 through its own optics, and :mod:`.compare` holds the window's fields
-against it.
+against it.  A configuration may name its own inputs builder and plain
+reference (:func:`.manifest.inputs_builder`,
+:func:`.manifest.reference_module`).
 """
 
 from __future__ import annotations
@@ -22,9 +24,8 @@ import torch
 
 from ..frozen import measure
 from ..frozen import pha as frozen_pha
-from ..reference import mc
 from . import compare, manifest
-from .inputs import make_inputs, request_seeds, seeds
+from .inputs import request_seeds, seeds
 from .trace import Shims, reduce_trace
 
 __all__ = ['run_cell', 'prepare', 'warm_up', 'window', 'reference', 'judge',
@@ -43,7 +44,7 @@ class Request:
     n_launched: int
     n_cut: int              # photons in flight at the step cap, dropped
     steps: int              # flight steps (the phase-pair kernel's launches)
-    images: dict            # field name -> (Nx, Ny) image
+    images: dict            # field name -> its image (compare.field_images)
     flights: list           # its run_transport_flight records
 
     @property
@@ -78,12 +79,13 @@ def prepare(cell, device):
     from er3t_tpu_torch.rtm import mc_flight, solver
 
     traffic = cell.traffic
-    inp = make_inputs(cell.config)
+    inp = manifest.inputs_builder(cell.root, cell.config)(cell.config)
     pha = pha_mie_wc(**inp.mie) if inp.mie is not None else None
     req = {'photons': cell.config['photons'], 'n_run': cell.config['n_run']}
     req.update(traffic['solve'])
-    kw = dict(inp.solve_kw, **req, atm=inp.atm, abs_coef=inp.abs_coef,
-              cld=inp.cld, pha=pha, device=device)
+    kw = dict(inp.solve_kw, **inp.solve_objects)
+    kw.update(req, atm=inp.atm, abs_coef=inp.abs_coef, cld=inp.cld, pha=pha,
+              device=device)
     kw['photons'] = float(req['photons'])
     return Prep(cell=cell, inputs=inp, kw=kw,
                 n_asked=int(float(req['photons'])) * int(req['n_run']),
@@ -135,8 +137,9 @@ def window(prep, shims, seconds=None, n_requests=None):
 def reference(prep, seed, dtype=torch.float32, n_photons=None, batches=None):
     """The plain reference's fields: ({field: [image per batch]}, photons
     a batch), its optics worked out again from the inputs (its own Mie
-    tables included)."""
+    tables included), by the configuration's reference."""
     check, inp = prep.cell.check, prep.inputs
+    plain = manifest.reference_module(prep.cell.root, prep.cell.config)
     dev = prep.kw['device']
     if torch.device(dev).type == 'cuda':
         gc.collect()
@@ -144,15 +147,15 @@ def reference(prep, seed, dtype=torch.float32, n_photons=None, batches=None):
     ref_inp = dataclasses.replace(
         inp, pha=(frozen_pha.pha_mie_wc(**inp.mie) if inp.mie is not None
                   else None))
-    opt = mc.optics(ref_inp, dev, dtype=dtype)
+    opt = plain.optics(ref_inp, dev, dtype=dtype)
     nb = int(batches or check['reference_batches'])
     n = int(float(n_photons or check['reference_photons']))
-    img, counts = mc.run(opt, n, seeds(seed, 1, _REFERENCE)[0],
-                         target=prep.target, n_tallies=nb,
-                         batch=int(check.get('reference_lanes', 1 << 20)))
+    img, counts = plain.run(opt, n, seeds(seed, 1, _REFERENCE)[0],
+                            target=prep.target, n_tallies=nb,
+                            batch=int(check.get('reference_lanes', 1 << 20)))
     out = {f['name']: [] for f in check['fields']}
     for k in range(nb):
-        red = mc.reduce(opt, img[k], counts[k], inp.abs_coef, prep.target)
+        red = plain.reduce(opt, img[k], counts[k], inp.abs_coef, prep.target)
         for name, im in compare.field_images(red, check['fields']).items():
             out[name].append(im)
     return out, n / nb

@@ -5,6 +5,10 @@ benchmark's frozen copies (``benchmark/frozen``), so the port and the
 reference get the very same objects.  The Mie phase functions are not
 made here: each side computes its own from ``Inputs.mie`` (the port with
 its ``pha_mie_wc`` in set-up, the reference with the frozen copy).
+A configuration that names its own builder (``"inputs"``, see
+:mod:`.manifest`) may also hand both sides further ``solve`` arguments made
+from frozen copies (``Inputs.solve_objects``: 3D aerosols, a surface
+object); what the port derives from them it derives in set-up.
 
 Every seed gets the same inputs and the same work: the configuration and
 the traffic's fixed sequence of request seeds (:func:`request_seeds`) make
@@ -30,6 +34,9 @@ class Inputs:
     mie: dict | None          # pha_mie_wc keyword arguments, or no Mie
     solve_kw: dict            # solve's keyword arguments of the configuration
     pha: object = None        # the side's own phase object, once made
+    # further solve keyword arguments made from frozen copies (aer_3ds, a
+    # surface object, ...), handed to both sides
+    solve_objects: dict = dataclasses.field(default_factory=dict)
 
 
 def seeds(seed, n, stream):

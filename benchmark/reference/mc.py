@@ -1,4 +1,5 @@
-"""Plain Monte Carlo reference of ``solve``'s radiance and flux targets.
+"""Plain Monte Carlo reference of ``solve``'s radiance, flux and heating-rate
+targets.
 
 It solves the same transfer problem as the port, from the same inputs,
 with its own optics (the frozen scene body in ``benchmark/frozen``) and its
@@ -22,8 +23,12 @@ own transport, written for clarity and not for speed:
 
 Tallies are contracted over g with the spectral factors of the frozen
 ``out.spectral_factors`` and reduced with the frozen ``reduce_radiance``
-and ``reduce_flux``.  Every float the transport holds is of ``dtype``:
-float32 is the reference, bfloat16 the low-precision control.
+and ``reduce_flux``; the flux gets the incoming beam at the top level, as
+the port's does.  Heating rate runs the flux transport, and its ``hr`` is
+the frozen ``heating_rate`` of the domain-average net flux: in a periodic
+domain its convergence in a layer is the energy the layer absorbs, which
+the port tallies directly.  Every float the transport holds is of
+``dtype``: float32 is the reference, bfloat16 the low-precision control.
 
 Nothing here imports the port: it may run where the port is absent.
 """
@@ -35,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from ..frozen import heating
 from ..frozen import out as fout
 from ..frozen import scene_np
 
@@ -103,6 +109,9 @@ class Optics:
 def optics(inputs, device, dtype=torch.float32):
     """Work out the scene from the inputs (``inputs.atm``, ``.abs_coef``,
     ``.cld``, ``.pha`` and the solve settings in ``inputs.solve_kw``)."""
+    if inputs.solve_objects:
+        raise ValueError('the reference takes no solve objects; a '
+                         'configuration that has them names its own')
     kw = inputs.solve_kw
     leaves, static = scene_np._build_numpy(
         inputs.atm, inputs.abs_coef, inputs.cld, inputs.pha, (), (),
@@ -111,7 +120,12 @@ def optics(inputs, device, dtype=torch.float32):
         kw.get('forward_trunc_deg'), None, None)
     f_rad, _ = fout.spectral_factors(inputs.abs_coef, nz_out=1)
     f_flux, _ = fout.spectral_factors(inputs.abs_coef, nz_out=static.nz + 1)
-    return Optics(leaves, static, f_rad[0], f_flux, device, dtype)
+    o = Optics(leaves, static, f_rad[0], f_flux, device, dtype)
+    o.atm = inputs.atm
+    # the incoming beam at the top level, per area: one launched photon's
+    # weight, contracted with that level's factors
+    o.toa_down = o.mu0 * float(f_flux[-1].sum())
+    return o
 
 
 def _column(o, x, y):
@@ -329,11 +343,20 @@ def run(o, n_photon, seed, target='radiance', batch=1 << 20, n_tallies=1,
 
 def reduce(o, img, n_launched, abs_coef, target):
     """Physical fields of one tally (``img[k]`` of :func:`run`, with its
-    photons), by the frozen reductions: ``{'rad': (Nx, Ny)}`` or the flux
-    dict of (Nx, Ny, Nz+1) arrays."""
+    photons), by the frozen reductions: ``{'rad': (Nx, Ny)}``, or the flux
+    dict of (Nx, Ny, Nz+1) arrays with the incoming beam at the top level;
+    heating rate adds ``hr`` (Nz,) [K/day] of the domain-average net
+    flux."""
     raw = img.float().cpu().numpy().astype(np.float64)[..., None]
     if target == 'radiance':
         return fout.reduce_radiance(raw, n_launched, abs_coef, o.mu0,
                                     precontracted=True)
-    return fout.reduce_flux(raw, n_launched, abs_coef, o.mu0,
-                            precontracted=True)
+    red = fout.reduce_flux(raw, n_launched, abs_coef, o.mu0,
+                           precontracted=True)
+    for k in ('f_down_direct', 'f_down'):
+        red[k][..., -1] += o.toa_down
+    if target == 'heating_rate':
+        red['hr'] = heating.heating_rate(
+            {k: red[k].mean(axis=(0, 1)) for k in ('f_down', 'f_up')},
+            o.atm)
+    return red

@@ -10,7 +10,7 @@ import pytest
 
 from conftest import ROOT
 
-CELLS = ['rad_les.run1e6', 'flux_les.run1e6']
+CELLS = ['rad_les.run1e6', 'flux_les.run1e6', 'flux_les.hr1e6']
 
 
 @pytest.mark.cuda

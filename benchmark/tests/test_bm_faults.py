@@ -9,9 +9,11 @@ past the harness's look for a card, with one fault planted in the port:
 * ``half_batch``: every flight runs half its photons and its tallies are
   normalised by the half that ran (the mean over the rest);
 * ``answer_altered``: the image or flux field is rolled by a quarter of
-  the domain where ``rtm/out.py`` produces it;
+  the domain, and the heating-rate profile by a quarter of its layers,
+  where ``rtm/out.py`` produces them;
 * ``half_deposits``: half of what the photons deposit is left out where
-  the field is produced, and the mean taken over all of them;
+  the field (or the heating rate) is produced, and the mean taken over all
+  of them;
 * ``drain_cut``: every flight stops at a 30th of its step cap, its
   photons still in flight dropped.
 
@@ -27,6 +29,8 @@ import pytest
 from benchmark.lib import harness
 
 from conftest import tiny_cell
+
+CELLS = ['rad_les.run1e6', 'flux_les.run1e6', 'flux_les.hr1e6']
 
 
 def _plant(monkeypatch, fault):
@@ -55,6 +59,7 @@ def _plant(monkeypatch, fault):
                 return a * 0.5
             return np.roll(a, a.shape[0] // 4, axis=0)
         orig_r, orig_f = out.reduce_radiance, out.reduce_flux
+        orig_h = out.heating_rate_from_absorbed
 
         def rad(*a, **k):
             r = orig_r(*a, **k)
@@ -66,6 +71,8 @@ def _plant(monkeypatch, fault):
                     for key, v in r.items()}
         monkeypatch.setattr(out, 'reduce_radiance', rad)
         monkeypatch.setattr(out, 'reduce_flux', flux)
+        monkeypatch.setattr(out, 'heating_rate_from_absorbed',
+                            lambda *a, **k: alter(orig_h(*a, **k)))
 
 
 def _run(workload):
@@ -73,7 +80,7 @@ def _run(workload):
                             'cpu', time.perf_counter())
 
 
-@pytest.mark.parametrize('workload', ['rad_les.run1e6', 'flux_les.run1e6'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_sound_run_is_correct(workload):
     out = _run(workload)
     assert out['correct'], out['checks']
@@ -85,7 +92,7 @@ def test_sound_run_is_correct(workload):
 @pytest.mark.parametrize('fault', ['step_unchanged', 'half_batch',
                                    'answer_altered', 'half_deposits',
                                    'drain_cut'])
-@pytest.mark.parametrize('workload', ['rad_les.run1e6', 'flux_les.run1e6'])
+@pytest.mark.parametrize('workload', CELLS)
 def test_fault_is_not_correct(monkeypatch, workload, fault):
     _plant(monkeypatch, fault)
     out = _run(workload)

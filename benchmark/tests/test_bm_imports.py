@@ -1,5 +1,6 @@
 """Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the port.  Top-level module names are compared
+references and the configurations' inputs builders load nothing of the
+port.  Top-level module names are compared
 whole: ``er3t_tpu_torch`` is the port, ``er3t_tpu`` the JAX package."""
 
 import ast
@@ -34,7 +35,7 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert not _top_imports(p) & JAX_SIDE, p
 
 
-@pytest.mark.parametrize('part', ['reference', 'frozen'])
+@pytest.mark.parametrize('part', ['reference', 'frozen', 'inputs'])
 def test_reference_and_frozen_copies_import_nothing_of_the_port(part):
     for p in _sources(part):
         assert not _top_imports(p) & (JAX_SIDE | {'er3t_tpu_torch'}), p

@@ -1,6 +1,7 @@
 """BENCHMARK.json keeps to the benchmark's contract, and the harness finds
-each cell's files and each metric's reader by name; a new cell is new
-files and a manifest entry, with no file edited."""
+each cell's files, each metric's reader and each configuration's inputs
+builder and plain reference by name; a new cell or configuration is new
+files and manifest entries, with no file edited."""
 
 import hashlib
 import json
@@ -102,7 +103,8 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
 def test_load_cell_finds_every_file_by_name(workload):
     cell = manifest.load_cell(ROOT, workload)
     assert cell.config['name'] in {c['name'] for c in _man()['configs']}
-    assert cell.traffic['solve']['target'] in ('radiance', 'flux')
+    assert cell.traffic['solve']['target'] in ('radiance', 'flux',
+                                               'heating_rate')
     assert set(cell.check['limits']) >= {'photons_missing'}
     assert {f['name'] for f in cell.check['fields']} >= {
         cell.check['noise_field']}
@@ -116,10 +118,58 @@ def _digest(root):
             if p.is_file() and '__pycache__' not in p.parts}
 
 
+def test_without_the_keys_a_configuration_takes_the_default_modules():
+    from benchmark.lib import inputs
+    from benchmark.reference import mc
+    for c in _man()['configs']:
+        cfg = json.loads((ROOT / c['file']).read_text())
+        assert manifest.inputs_builder(ROOT, cfg) is inputs.make_inputs
+        assert manifest.reference_module(ROOT, cfg) is mc
+
+
+# a configuration's own inputs builder and plain reference, as a later
+# change would add them: a clear sky over a brighter surface object, and
+# the default reference fed that surface, which reports what it was given
+_INPUTS = """import dataclasses
+
+from benchmark.lib.inputs import make_inputs as _default
+
+
+def make_inputs(config):
+    return dataclasses.replace(_default(config), cld=None,
+                               solve_objects={'surface': 0.5})
+"""
+_REFERENCE = """import dataclasses
+
+import numpy as np
+
+from . import mc
+
+run = mc.run
+
+
+def optics(inputs, device, dtype):
+    kw = dict(inputs.solve_kw, **inputs.solve_objects)
+    return mc.optics(dataclasses.replace(inputs, solve_kw=kw,
+                                         solve_objects={}), device, dtype)
+
+
+def reduce(o, img, n_launched, abs_coef, target):
+    red = mc.reduce(o, img, n_launched, abs_coef, target)
+    red['albedo_seen'] = np.full(red['f_up'].shape, o.albedo)
+    return red
+"""
+
+
 def test_a_new_cell_is_new_files_and_an_entry(tmp_path):
-    """In a copy: a throwaway traffic mix, its cell file and a metric reader
-    are found by name once the manifest names them; no file that was there
-    changes."""
+    """In a copy: a throwaway traffic mix, its cell file, a metric reader
+    and a configuration with its own inputs builder and plain reference
+    are found by name once the manifest names them, and the configuration
+    runs through ``prepare`` and ``reference`` on the CPU; no file that was
+    there changes."""
+    from benchmark.lib import harness
+
+    from conftest import tiny_cell
     shutil.copytree(ROOT / 'benchmark', tmp_path / 'benchmark',
                     ignore=shutil.ignore_patterns('__pycache__'))
     shutil.copy(ROOT / 'BENCHMARK.json', tmp_path / 'BENCHMARK.json')
@@ -133,9 +183,27 @@ def test_a_new_cell_is_new_files_and_an_entry(tmp_path):
         (bench / 'cells' / 'rad_les.run1e6.json').read_text())
     (bench / 'metrics' / 'step.count.py').write_text(
         'def read(run):\n    return 42.0\n')
+    cfg = json.loads((bench / 'configs' / 'les_flux650.json').read_text())
+    cfg.update(name='clear_bright', inputs='clear_bright',
+               reference='clear_bright')
+    (bench / 'configs' / 'clear_bright.json').write_text(json.dumps(cfg))
+    (bench / 'inputs' / 'clear_bright.py').write_text(_INPUTS)
+    (bench / 'reference' / 'clear_bright.py').write_text(_REFERENCE)
+    check = json.loads(
+        (bench / 'cells' / 'flux_les.hr1e6.json').read_text())
+    check['fields'].append({'name': 'albedo', 'key': 'albedo_seen',
+                            'level': 0, 'domain': True})
+    (bench / 'cells' / 'clear_bright.hr1e6.json').write_text(
+        json.dumps(check))
     m = json.loads((tmp_path / 'BENCHMARK.json').read_text())
+    m['configs'].append({'name': 'clear_bright', 'source': 'x',
+                         'file': 'benchmark/configs/clear_bright.json',
+                         'reduced': [], 'why': 'x'})
     m['workloads'].append({'name': 'rad_les.lut2e5x3', 'config': 'les_rad650',
                            'traffic': 'rad_lut', 'chips': 1, 'why': 'LUT'})
+    m['workloads'].append({'name': 'clear_bright.hr1e6',
+                           'config': 'clear_bright', 'traffic': 'hr_closed',
+                           'chips': 1, 'why': 'own inputs and reference'})
     m['per_layer'].append({'name': 'step.count', 'unit': 'steps',
                            'better': 'lower', 'source': 'program_counter',
                            'layer': 'x', 'moves': 'photons_per_s',
@@ -145,5 +213,15 @@ def test_a_new_cell_is_new_files_and_an_entry(tmp_path):
     assert cell.traffic['solve']['n_run'] == 3
     assert [p['name'] for p in cell.per_layer] == ['step.count']
     assert manifest.metric_reader(tmp_path, 'step.count')(None) == 42.0
+
+    cell = tiny_cell('clear_bright.hr1e6', tmp_path)
+    assert cell.config['inputs'] == 'clear_bright'
+    prep = harness.prepare(cell, 'cpu')
+    assert prep.inputs.cld is None and prep.kw['surface'] == 0.5
+    ref, n_b = harness.reference(prep, 3, n_photons=4000, batches=2)
+    assert n_b == 2000
+    assert [a.shape for a in ref['albedo']] == [(1, 1)] * 2
+    assert [float(a[0, 0]) for a in ref['albedo']] == [0.5, 0.5]
+    assert ref['hr'][0].shape == (len(cell.config['levels_km']) - 1,)
     after = _digest(bench)
     assert {k: v for k, v in after.items() if k in before} == before

@@ -141,3 +141,178 @@ def test_photons_cut_per_million_asked():
                         0, photons_cut=37)
     assert v['photons_cut_ppm'] == pytest.approx(18.5)
     assert v['rad.mean_z'] == pytest.approx(0.0, abs=1e-9)
+
+
+def _limits(workload):
+    return json.loads((ROOT / 'benchmark' / 'cells'
+                       / f'{workload}.json').read_text())['limits']
+
+
+def _draws(rng, truth, k, n, var):
+    """``k`` fields of ``n`` photons each about ``truth``, at a per-photon
+    variance ``var`` a pixel."""
+    return [truth + rng.normal(0.0, np.sqrt(var / n), np.shape(truth))
+            for _ in range(k)]
+
+
+def test_an_image_is_compared_by_the_same_arithmetic_as_before():
+    """A field with no NaN whose image has both sides above 1: strips and
+    domain mean by exactly the arithmetic that the cells were calibrated
+    with, bit for bit."""
+    rng = np.random.default_rng(2)
+    truth = 1.0 + rng.random((48, 40))
+    prog, ref = _draws(rng, truth, 3, 1e4, 2.0), _draws(rng, truth, 8, 5e3,
+                                                        2.0)
+    got = compare.numbers({'f': prog}, 3e4, {'f': ref}, 5e3,
+                          [{'name': 'f', 'key': 'f'}], 0)
+    p, rb = np.mean(prog, axis=0), np.stack(ref)
+
+    def strips(a):
+        return np.concatenate([a.mean(axis=1), a.mean(axis=0)])
+    rs = np.stack([strips(b) for b in rb])
+    z = (strips(p) - rs.mean(axis=0)) / np.sqrt(
+        rs.var(axis=0, ddof=1) * 5e3 * (1 / 3e4 + 1 / 4e4))
+    m = rb.mean(axis=(1, 2))
+    zm = (p.mean() - m.mean()) / np.sqrt(m.var(ddof=1) * 5e3
+                                         * (1 / 3e4 + 1 / 4e4))
+    assert got['f.strip_z_rms'] == float(np.sqrt(np.mean(z ** 2)))
+    assert got['f.mean_z'] == float(abs(zm))
+    assert set(got) == {'photons_missing', 'photons_cut_ppm', 'f.strip_z_rms',
+                        'f.mean_z'}
+
+
+def test_domain_fields_are_averaged_and_read_by_their_mean():
+    """The program's domain-average tally, a (1, 1, Nz+1) field, against
+    the reference's per-column crossings averaged per batch: only
+    ``mean_z``, under the heating-rate cell's limit when sound and above
+    it with a 5 % scale error."""
+    rng = np.random.default_rng(3)
+    lim = _limits('flux_les.hr1e6')
+    field = [{'name': 'f_down_sfc', 'key': 'f_down', 'level': 0,
+              'domain': True}]
+    col = 1.0 + rng.random((24, 20, 5))
+    ref = [compare.field_images({'f_down': c}, field)['f_down_sfc']
+           for c in _draws(rng, col, 16, 2.5e5, 30.0)]
+    assert all(a.shape == (1, 1) for a in ref)
+
+    def prog(scale):
+        dom = col.mean(axis=(0, 1), keepdims=True) * scale
+        return [compare.field_images({'f_down': d}, field)['f_down_sfc']
+                for d in _draws(rng, dom, 4, 1e6, 1.0)]
+    good = compare.numbers({'f_down_sfc': prog(1.0)}, 4e6,
+                           {'f_down_sfc': ref}, 2.5e5, field, 0)
+    off = compare.numbers({'f_down_sfc': prog(1.05)}, 4e6,
+                          {'f_down_sfc': ref}, 2.5e5, field, 0)
+    assert 'f_down_sfc.strip_z_rms' not in good
+    assert good['f_down_sfc.mean_z'] < lim['f_down_sfc.mean_z']
+    assert off['f_down_sfc.mean_z'] > lim['f_down_sfc.mean_z']
+
+
+def test_a_profile_is_read_entry_by_entry_and_by_its_mean():
+    """A heating-rate profile (23,) at about the reference's noise at the
+    cell's size (0.3 % a layer in a batch of 2.5e5 photons):
+    ``profile_z_rms`` and ``mean_z`` under the heating-rate cell's limits
+    when sound; a 5 % scale error reads above ``mean_z``'s, a profile
+    shifted by one layer, or 5 % of one layer's absorption moved into the
+    next (the mean kept), above ``profile_z_rms``'s."""
+    rng = np.random.default_rng(4)
+    lim = _limits('flux_les.hr1e6')
+    truth = np.linspace(3e-4, 2e-3, 23) + 1e-4 * np.sin(np.arange(23))
+    var = (0.003 * truth) ** 2 * 2.5e5
+    fields = [{'name': 'hr', 'key': 'hr'}]
+    ref = {'hr': _draws(rng, truth, 16, 2.5e5, var)}
+
+    def numbers(prof):
+        return compare.numbers({'hr': _draws(rng, prof, 4, 1e6, var)}, 4e6,
+                               ref, 2.5e5, fields, 0)
+    good, off = numbers(truth), numbers(1.05 * truth)
+    shifted = numbers(np.roll(truth, 1))
+    moved = truth.copy()
+    moved[[11, 12]] += np.array([-0.05, 0.05]) * truth[11]
+    moved = numbers(moved)
+    assert set(good) == {'photons_missing', 'photons_cut_ppm',
+                         'hr.profile_z_rms', 'hr.mean_z'}
+    assert good['hr.profile_z_rms'] < lim['hr.profile_z_rms']
+    assert good['hr.mean_z'] < lim['hr.mean_z']
+    assert off['hr.mean_z'] > lim['hr.mean_z']
+    assert shifted['hr.profile_z_rms'] > lim['hr.profile_z_rms']
+    assert moved['hr.mean_z'] < lim['hr.mean_z']
+    assert moved['hr.profile_z_rms'] > lim['hr.profile_z_rms']
+
+
+def test_nan_pixels_are_left_out_of_strips_and_means():
+    """A fisheye image, NaN outside its circle on both sides: finite
+    numbers under the radiance cell's strip limit when sound; a 5 % scale
+    error reads above it."""
+    rng = np.random.default_rng(6)
+    lim = _limits('rad_les.run1e6')['rad.strip_z_rms']
+    n = 64
+    yy, xx = np.mgrid[:n, :n] + 0.5
+    out = np.hypot(xx - n / 2, yy - n / 2) > n / 2
+    truth = 1.0 + 0.5 * np.cos(xx / 9.0) * np.sin(yy / 7.0)
+    fields = [{'name': 'rad', 'key': 'rad'}]
+
+    def images(k, photons, scale):
+        return [np.where(out, np.nan, a)
+                for a in _draws(rng, scale * truth, k, photons, 4.0)]
+    ref = {'rad': images(16, 2.5e5, 1.0)}
+    good = compare.numbers({'rad': images(4, 1e6, 1.0)}, 4e6, ref, 2.5e5,
+                           fields, 0)
+    off = compare.numbers({'rad': images(4, 1e6, 1.05)}, 4e6, ref, 2.5e5,
+                          fields, 0)
+    assert np.isfinite(good['rad.strip_z_rms'])
+    assert np.isfinite(good['rad.mean_z'])
+    assert good['rad.strip_z_rms'] < lim
+    assert off['rad.strip_z_rms'] > lim
+
+
+def _flat(shape, masked):
+    """A flat field of ``shape`` (so that dropping a pixel biases nothing),
+    NaN outside a centred circle where ``masked``."""
+    a = np.ones(shape)
+    if masked:
+        yy, xx = np.mgrid[:shape[0], :shape[1]] + 0.5
+        a[np.hypot(xx - shape[1] / 2, yy - shape[0] / 2) > shape[0] / 2] = \
+            np.nan
+    return a
+
+
+@pytest.mark.parametrize('kind', ['masked', 'image', 'domain', 'profile'])
+def test_a_program_nan_where_the_reference_has_a_number_fails(kind):
+    """One NaN in one of the program's requests, where the reference has a
+    number: every number of that field is NaN, and ``judge`` fails it;
+    the same field without the NaN passes.  Flat fields, so that leaving
+    one pixel out could not move a strip or a mean by itself."""
+    rng = np.random.default_rng(7)
+    if kind == 'profile':
+        truth, spot = np.linspace(1.0, 2.0, 23), (11,)
+        fields = [{'name': 'hr', 'key': 'hr'}]
+    elif kind == 'domain':
+        truth, spot = _flat((24, 20, 5), False), (12, 10, 0)
+        fields = [{'name': 'hr', 'key': 'f', 'level': 0, 'domain': True}]
+    else:
+        truth, spot = _flat((64, 64), kind == 'masked'), (32, 32)
+        fields = [{'name': 'hr', 'key': 'hr'}]
+
+    def draws(k, photons):
+        out = []
+        for a in _draws(rng, truth, k, photons, 4.0):
+            if kind == 'domain':
+                a = compare.field_images({'f': a}, fields)['hr']
+            out.append(a)
+        return out
+    ref = {'hr': draws(16, 2.5e5)}
+    sound = draws(4, 1e6)
+    holed = [a.copy() for a in sound]
+    if kind == 'domain':
+        col = _draws(rng, truth, 1, 1e6, 4.0)[0]
+        col[spot] = np.nan
+        holed[0] = compare.field_images({'f': col}, fields)['hr']
+    else:
+        holed[0][spot] = np.nan
+    good = compare.numbers({'hr': sound}, 4e6, ref, 2.5e5, fields, 0)
+    bad = compare.numbers({'hr': holed}, 4e6, ref, 2.5e5, fields, 0)
+    limits = {k: 6.0 for k in good if k.startswith('hr.')}
+    assert limits and compare.judge(good, limits)[0]
+    assert all(np.isnan(bad[k]) for k in limits)
+    assert not compare.judge(bad, limits)[0]

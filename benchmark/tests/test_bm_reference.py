@@ -69,10 +69,49 @@ def test_bfloat16_control_fails_the_radiance_check():
     assert harness.judge(prep, again, 100000, 0, 0, ref, n_b)[0]
 
 
-@pytest.mark.parametrize('target', ['radiance', 'flux'])
+def test_heating_rate_of_a_purely_absorbing_column_is_its_closed_form():
+    """Gas absorption alone (no Rayleigh, no cloud) over a black surface:
+    every photon falls straight through, so each layer absorbs, per
+    g-point, mu0 F0_g (exp(-tau_top,g / mu0) - exp(-tau_bottom,g / mu0)),
+    tau the gas optical depth above a level.  The reference's ``hr`` times
+    each layer's air heat capacity, both worked out here, equals it; the
+    top level's ``f_down`` is the incoming beam.  In float64: the test
+    column is one pixel, and 20000 equal crossings summed into it in
+    float32 round by up to 3e-4 of the incoming flux, as much as a thin
+    layer absorbs (the cell's tallies spread over 480 x 480 columns).
+    Float64 meets the closed form to 1e-4 of each layer's share."""
+    cell = tiny_cell('flux_les.hr1e6')
+    inp = dataclasses.replace(make_inputs(cell.config), cld=None, pha=None)
+    o = mc.optics(inp, 'cpu', dtype=torch.float64)
+    o.sig_ray = torch.zeros_like(o.sig_ray)
+    o.ray_up = torch.zeros_like(o.ray_up)
+    o.sig_maj = torch.full_like(o.sig_maj, 1e-12)
+    o.albedo = 0.0
+    n = 20000
+    img, launched = mc.run(o, n, 17, target='heating_rate', batch=1 << 14)
+    assert launched == [n]
+    red = mc.reduce(o, img[0], n, inp.abs_coef, 'heating_rate')
+    lay = inp.atm.lay
+    heat_cap = (lay.pressure * 100.0 / (287.0 * lay.temperature) * 1004.0
+                * lay.thickness * 1000.0)
+    absorbed = red['hr'] * heat_cap / 86400.0
+    tau = np.concatenate([np.cumsum(inp.abs_coef.abso_coef[::-1],
+                                    axis=0)[::-1],
+                          np.zeros((1, o.ng))])                # (Nz+1, Ng)
+    fac = fout.spectral_factors(inp.abs_coef, nz_out=o.nz + 1)[0]
+    down = o.mu0 * (fac * np.exp(-tau / o.mu0)).sum(axis=1)   # (Nz+1,)
+    incoming = o.mu0 * fout.spectral_factors(inp.abs_coef)[1]
+    assert red['hr'].shape == (o.nz,)
+    assert red['f_down'].mean(axis=(0, 1))[-1] == pytest.approx(incoming,
+                                                                 rel=1e-6)
+    np.testing.assert_allclose(absorbed, down[1:] - down[:-1], rtol=1e-3)
+    assert (absorbed > 0).all()
+
+
+@pytest.mark.parametrize('target', ['radiance', 'flux', 'heating_rate'])
 def test_reference_is_seeded(target):
-    cell = tiny_cell('rad_les.run1e6' if target == 'radiance'
-                     else 'flux_les.run1e6')
+    cell = tiny_cell({'radiance': 'rad_les.run1e6', 'flux': 'flux_les.run1e6',
+                      'heating_rate': 'flux_les.hr1e6'}[target])
     inp = make_inputs(cell.config)
     o = mc.optics(inp, 'cpu')
     a, na = mc.run(o, 3000, 7, target=target, batch=1024, n_tallies=3)
