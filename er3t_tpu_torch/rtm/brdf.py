@@ -116,7 +116,9 @@ def brdf_sample_dir_weight(jsfc, psfc, wix, wiy, wiz, u1, u2, u3, u4):
     Lambertian: cosine direction, weight = albedo.  LSRT: cosine direction,
     weight = BRF(w').  Cox-Munk: whitecap bounce with prob diffuse_frac,
     else Gaussian-slope facet reflection with the Fresnel weight; downward
-    reflections get weight 0.
+    reflections get weight 0.  Returns ``(ux, uy, uz, w, (is_cm,
+    whitecap, up_ok))``: the masks of the Cox-Munk branch, a lane on a
+    Cox-Munk surface, its whitecap draw and an upward facet reflection.
     """
     # cosine-weighted candidate
     mu_r = torch.sqrt(u1)
@@ -164,4 +166,4 @@ def brdf_sample_dir_weight(jsfc, psfc, wix, wiy, wiz, u1, u2, u3, u4):
     uy = torch.where(is_cm, uy_cm, cy)
     uz = torch.where(is_cm, uz_cm, cz)
     w = torch.where(is_cm, w_cm, torch.where(is_lsrt, w_lsrt, psfc[:, 0]))
-    return ux, uy, uz, torch.clamp(w, min=0.0)
+    return ux, uy, uz, torch.clamp(w, min=0.0), (is_cm, whitecap, up_ok)

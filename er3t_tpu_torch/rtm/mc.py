@@ -538,8 +538,8 @@ class MarchingKernel:
             rad.index_add_(0, self._rad_pixel(x, y, z0, ix0, iy0),
                            torch.where(hit_sfc[:, None], c_sfc, 0.0))
         # the reflection reuses deviates 5, 6, 2 and 4, as the reference
-        bx, by, bz, bw = brdf_sample_dir_weight(jsfc_l, psfc_l, ux, uy, uz,
-                                                u[5], u[6], u[2], u[4])
+        bx, by, bz, bw, _ = brdf_sample_dir_weight(
+            jsfc_l, psfc_l, ux, uy, uz, u[5], u[6], u[2], u[4])
         ux = torch.where(hit_sfc, bx, ux)
         uy = torch.where(hit_sfc, by, uy)
         uz = torch.where(hit_sfc, bz, uz)

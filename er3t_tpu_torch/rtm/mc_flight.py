@@ -71,10 +71,13 @@ from .scene import SceneArrays, SceneStatic, camera_rotation
 
 __all__ = ['FlightCarry', 'FlightKernel', 'SlabSpec', 'transport_flight',
            'run_transport_flight', 'draw_deviates', 'lane_matrix',
-           'lanes_from_matrix', 'OUTCOMES']
+           'lanes_from_matrix', 'OUTCOMES', 'SFC_BRANCHES']
 
 # the classes of an active lane iteration (transport_flight's counters)
 OUTCOMES = ('real', 'null', 'surface', 'toa', 'stopped')
+# the Cox-Munk branch of a surface hit: an upward facet reflection, a
+# whitecap bounce, a facet reflection that points down (weight 0)
+SFC_BRANCHES = ('specular', 'whitecap', 'lost')
 
 _F = torch.float32
 _I = torch.int32
@@ -266,6 +269,12 @@ class FlightKernel:
     flight stopped short at a crossing-count, tile or slab clamp (the
     caller sets it; it draws no deviate and changes no tally).
 
+    ``sfc_branch``: ``None``, or a (3,) int64 tensor on the device to
+    which each step adds its surface hits by Cox-Munk branch
+    (:data:`SFC_BRANCHES`); ``tile_stops``: ``None``, or a (2,) int64
+    tensor to which each step adds its active lanes and those whose flight
+    ended on a tile face (the caller sets them, as ``outcome``).
+
     ``graphs``: ``None`` (every step runs eagerly), or a dict, from batch
     width to :class:`_StepGraphs`, through which :meth:`step` replays
     captured CUDA graphs (the caller sets it; :func:`transport_flight`
@@ -273,7 +282,7 @@ class FlightKernel:
     steps replayed and the steps run eagerly while replaying.
     """
 
-    outcome = None
+    outcome = sfc_branch = tile_stops = None
     graphs = None
 
     def __init__(self, scene: SceneArrays, st: SceneStatic,
@@ -1235,7 +1244,7 @@ class FlightKernel:
         trace.phase('step.turn')
         psi = u[6] * (2.0 * math.pi)
         ux_s, uy_s, uz_s = rotate(ux, uy, uz, mu_new, psi)
-        bx, by, bz, bw = brdf_sample_dir_weight(
+        bx, by, bz, bw, (is_cm, whitecap, up_ok) = brdf_sample_dir_weight(
             jsfc_l, psfc_l, ux, uy, uz, u[5], u[6], u[9], u[10])
         ux = torch.where(accept, ux_s, torch.where(hit_sfc, bx, ux))
         uy = torch.where(accept, uy_s, torch.where(hit_sfc, by, uy))
@@ -1259,6 +1268,13 @@ class FlightKernel:
                 stopped = stopped | clamped
             self.outcome += torch.sum(torch.stack(
                 [accept, collided, hit_sfc, exit_toa, stopped]), dim=1)
+        if self.sfc_branch is not None:
+            facet = hit_sfc & is_cm & ~whitecap
+            self.sfc_branch += torch.sum(torch.stack(
+                [facet & up_ok, hit_sfc & is_cm & whitecap, facet & ~up_ok]),
+                dim=1)
+        if self.tile_stops is not None:
+            self.tile_stops += torch.sum(torch.stack([active, tclamp]), dim=1)
         alive = alive & ~exit_toa & (nscat < cfg.n_scat_max) & (wsc > 0.0)
         wmax = wsc * torch.exp(labs[ng])
         need_rr = active & (wmax < cfg.rr_wmin)
@@ -1473,7 +1489,13 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     ``flight.graph.eager_steps``, and the classes of
     every active lane iteration (:data:`OUTCOMES`, counted on the device
     and read once at the end) as ``flight.iter_outcome.<class>`` and in
-    ``stats['iter_outcome']``.  Flux tallies come back unpacked as (Nxf,
+    ``stats['iter_outcome']``.  Traced or given ``stats``, a flight over a
+    surface other than Lambertian counts its surface hits by Cox-Munk
+    branch (``stats['sfc_branch']``, {branch: hits}, the counters
+    ``flight.sfc.<branch>``), and one with tile clamps its ``active`` lane
+    iterations and those ``clamped`` at a tile face
+    (``stats['tile_stops']``, the counter ``flight.tile_clamps``), read
+    back with the outcome counts.  Flux tallies come back unpacked as (Nxf,
     Nyf, Nz+1, 3, Ng) (Ng -> 1 with the in-step contraction) with the
     deterministic TOA down-direct entry added (reference :1483-1497);
     ``rad_plen`` is the (Nxr, Nyr, Ng) pathlength-weighted image with
@@ -1494,6 +1516,12 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     if trace.enabled():
         kern.outcome = torch.zeros(len(OUTCOMES), dtype=torch.int64,
                                    device=dev)
+    if trace.enabled() or stats is not None:
+        if not st.sfc_lambertian:
+            kern.sfc_branch = torch.zeros(len(SFC_BRANCHES),
+                                          dtype=torch.int64, device=dev)
+        if kern.tile_clamp:
+            kern.tile_stops = torch.zeros(2, dtype=torch.int64, device=dev)
     # lane slots and idle lanes, where every step's live lanes are known
     lanes = [0, 0] if cfg.sort_every == 0 and cfg.split_wmax <= 0 else None
 
@@ -1562,12 +1590,23 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         trace.count('flight.idle_lanes', lanes[1])
     for k, v in kern.graph_stats.items():
         trace.count('flight.graph.' + k, v)
-    outcome = None
+    # the device's counters, read back once
+    outcome = branch = tiles = None
+    ctrs = [t for t in (kern.outcome, kern.sfc_branch, kern.tile_stops)
+            if t is not None]
+    vals = iter(torch.cat(ctrs).tolist() if ctrs else ())
     if kern.outcome is not None:
-        real, tentative, *rest = kern.outcome.tolist()
+        real, tentative, *rest = (next(vals) for _ in OUTCOMES)
         outcome = dict(zip(OUTCOMES, [real, tentative - real, *rest]))
         for k, v in outcome.items():
             trace.count('flight.iter_outcome.' + k, v)
+    if kern.sfc_branch is not None:
+        branch = {k: next(vals) for k in SFC_BRANCHES}
+        for k, v in branch.items():
+            trace.count('flight.sfc.' + k, v)
+    if kern.tile_stops is not None:
+        tiles = {k: next(vals) for k in ('active', 'clamped')}
+        trace.count('flight.tile_clamps', tiles['clamped'])
     if stats is not None:
         in_flight = read_counts(c, dev)[0]
         stats.update(stage_steps=stage_steps, max_steps=max_steps,
@@ -1577,6 +1616,10 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             stats.update(lane_slots=lanes[0], idle_lanes=lanes[1])
         if outcome is not None:
             stats['iter_outcome'] = outcome
+        if branch is not None:
+            stats['sfc_branch'] = branch
+        if tiles is not None:
+            stats['tile_stops'] = tiles
     ng_r = 1 if kern.scalar_rad else st.ng
     if kern.radiance:
         flux = torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev)
