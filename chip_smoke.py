@@ -23,7 +23,13 @@ Phases (any failure raises and the exit code is non-zero):
    re-checked bitwise, then a timed run of 4e6 photons with every launch
    count set to 0 just before; phase_pair must have launched once per
    flight step, and its domain-mean radiance must lie within
-   max(1 %, 4 sigma) of the JAX reference below;
+   max(1 %, 4 sigma) of the JAX reference below; on the card every step's
+   post half runs as the kernel of csrc/flight_post.cu
+   (FlightKernel.fused_steps, a count that replays keep), which is then
+   held against its plain version FlightKernel._step_post on the inputs
+   of the run's own 8th step at each of its widths (2^17, 2^14 and 2^11
+   lanes) at the card tests' tolerances, and timed there beside the plain
+   version's captured graph and its byte bound;
 5. front door: solve(target='radiance', ...) on the same scene;
 5b. independent g-points: solve(spectral='independent', qmc_launch=False,
    photons=2e6, n_run=2, mode='all'), the protocol of bench.py's noise
@@ -45,7 +51,11 @@ Phases (any failure raises and the exit code is non-zero):
    (domain-average tallies and the direct absorbed-energy tally), 1e6
    photons x 2 runs: hr finite and >= 0, its column integral within 5 % of
    the same runs' net-flux convergence, and within max(2 %, 4 sigma) of
-   the JAX reference below;
+   the JAX reference below; on the card its domain-average tallies run as
+   the kernel of csrc/domain_tally.cu every step, which is held against
+   the dense branch of FlightKernel._step_pre, and the post half against
+   its plain version, on the inputs of the first run's 8th step at each
+   width, as in phase 4, and timed;
 7. the other solvers, sensors and knobs of the flight engine, on the same
    scene, each run with every launch count set to 0 just before it and
    phase_pair launched once per flight step of it, its wall, steps and
@@ -755,6 +765,17 @@ EXAMPLES_REF_PHOTONS = 1_000_000
 
 PP_SOURCE = 'er3t_tpu_torch/csrc/phase_pair.cu'
 PP_REPLACES = 'er3t_tpu/rtm/pallas_phase.py:123'
+# the kernels of the flight step that no TPU kernel has: name -> (source,
+# what they replace)
+FUSED_KERNELS = {
+    'flight_post': ('er3t_tpu_torch/csrc/flight_post.cu',
+                    'none: the PyTorch ops of FlightKernel._step_post'),
+    'domain_tally': ('er3t_tpu_torch/csrc/domain_tally.cu',
+                     'none: the dense domain-average tally of '
+                     'FlightKernel._step_pre'),
+}
+CAPTURE_STEP = 8                 # the step of each batch width that the
+                                 # fused kernels' checks start from
 GP_SOURCE = 'er3t_tpu_torch/csrc/gather_probe.cu'
 # the kernels of the probe path: name -> (source, TPU kernels replaced)
 PROBE_KERNELS = {
@@ -998,6 +1019,264 @@ def read_back_s():
     s = trace.report()['spans']['flight.read']['total_ms'] * 1e-3
     trace.reset()
     return s
+
+
+# ---- the step's fused kernels (FlightKernel.fused_post, fused_tally) ----
+
+class StepCapture:
+    """While entered, every FlightKernel.step keeps a copy of its inputs
+    at the CAPTURE_STEP-th step of each batch width (the first kernel to
+    get there gives the width) and counts its steps.  ``steps``: width ->
+    (kernel, carry, u, q_off, u_split, u_imp); ``kernels``: the kernels
+    that stepped; ``n_steps``: their steps, in that order."""
+
+    def __enter__(self):
+        self.steps, self.kernels, self.n_steps = {}, [], []
+        at_width = {}
+        self.plain = plain = mc_flight.FlightKernel.step
+
+        def step(kern, c, u, q_off, u_split=None, u_imp=None):
+            i = next((i for i, k in enumerate(self.kernels) if k is kern),
+                     None)
+            if i is None:
+                i = len(self.kernels)
+                self.kernels.append(kern)
+                self.n_steps.append(0)
+            self.n_steps[i] += 1
+            b = c.x.shape[0]
+            at_width[i, b] = n = at_width.get((i, b), 0) + 1
+            if n == CAPTURE_STEP and b not in self.steps:
+                self.steps[b] = (kern, *map(_cloned, (c, u, q_off, u_split,
+                                                      u_imp)))
+            return plain(kern, c, u, q_off, u_split, u_imp)
+        mc_flight.FlightKernel.step = step
+        return self
+
+    def __exit__(self, *exc):
+        mc_flight.FlightKernel.step = self.plain
+
+
+def _cloned(v):
+    """A copy of a step input: a tensor, a carry of them, or a constant."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, mc_flight.FlightCarry):
+        return v._replace(**{f: t.clone() for f, t in v._asdict().items()
+                             if isinstance(t, torch.Tensor)})
+    return v
+
+
+def _graphed(fn, dev):
+    """What the replayed step runs of ``fn``: on the card, the replay of
+    ``fn`` captured as a CUDA graph (the host's issue left out); else
+    ``fn``."""
+    if dev.type != 'cuda':
+        return fn
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    return g.replay
+
+
+def _counters(kern):
+    return [t.clone() for t in (kern.outcome, kern.sfc_branch,
+                                kern.tile_stops) if t is not None]
+
+
+def _share_equal(a, b):
+    return float((a == b).double().mean())
+
+
+def _close_tally(what, got, ref, rel_sum, rtol):
+    """A tally of float atomics against the plain one: its sum to
+    ``rel_sum`` and >= 99.9 % of its entries to ``rtol`` (atol 1e-6 of the
+    largest entry); the entries' largest |difference| and that over the
+    largest entry."""
+    a, r = got.double(), ref.double()
+    s_a, s_r = float(a.sum()), float(r.sum())
+    check(abs(s_a - s_r) <= rel_sum * abs(s_r),
+          f'{what}: sum {s_a} against the plain {s_r}')
+    close = torch.isclose(a, r, rtol=rtol, atol=1e-6 * float(r.abs().max()))
+    share = float(close.double().mean())
+    check(share >= 0.999, f'{what}: {share:.5f} of the entries close')
+    err = float((a - r).abs().max())
+    return err, err / float(r.abs().max())
+
+
+def post_case(kern, c, u, q_off, u_split, u_imp, floor_ms):
+    """The post half of one captured step by the fused kernel
+    (csrc/flight_post.cu) against the plain FlightKernel._step_post, from
+    one _Mid and K1 pair, at the card tests' tolerances
+    (tests/test_torch_cuda.py): passed-through lanes bit for bit, turned
+    lanes to rtol 1e-4 / atol 1e-5, alive / nscat / direct equal on
+    >= 99.9 % of lanes, the counters' increments equal, the image and
+    absorbed tallies by _close_tally (1e-5, 1e-4).  Then both timed: the
+    kernel writing the static lanes, as graph ``post`` runs it; the plain
+    version as its captured graph replays.  Returns its row."""
+    from er3t_tpu_torch.rtm import flight_post
+    k1, mid = kern._step_pre(c, u, q_off, u_split, u_imp)
+    pair = phase_pair(*k1)
+    rad_f, ab_f = c.rad.clone(), c.absorbed.clone()
+    base_ab = c.absorbed.double()
+    mid_f = mid._replace(c=mid.c._replace(rad=rad_f, absorbed=ab_f))
+    n0 = _counters(kern)
+    got = kern._step_post_fused(mid_f, *pair)
+    n1 = _counters(kern)
+    ref = kern._step_post(mid, *pair)
+    n2 = _counters(kern)
+    torch.cuda.synchronize()
+    b = int(mid.x.shape[0])
+    for f in ('x', 'y', 'z', 'labs', 'plen', 'ix0', 'iy0', 'launched'):
+        check(torch.equal(getattr(got, f), getattr(ref, f)),
+              f'flight_post at {b} lanes: {f} not passed through')
+    same = torch.ones_like(mid.alive)
+    for f in ('alive', 'nscat', 'direct'):
+        share = _share_equal(getattr(got, f), getattr(ref, f))
+        check(share >= 0.999, f'flight_post at {b} lanes: {f} equal on '
+                              f'{share:.5f} of the lanes')
+        same &= getattr(got, f) == getattr(ref, f)
+    # the lanes whose decisions agree (a lane that took the other branch
+    # at a threshold carries another direction and weight)
+    err = 0.0
+    for f in ('ux', 'uy', 'uz', 'wsc', 'tau'):
+        g_, r_ = getattr(got, f)[same], getattr(ref, f)[same]
+        check(bool(torch.isclose(g_, r_, rtol=1e-4, atol=1e-5).all()),
+              f'flight_post at {b} lanes: {f} off the plain post half')
+        err = max(err, float((g_ - r_).abs().max()))
+    check(all(torch.equal(f1 - f0, p2 - f1)
+              for f0, f1, p2 in zip(n0, n1, n2)),
+          f'flight_post at {b} lanes: counters')
+    tallies = {}    # name -> (largest |difference|, over the largest)
+    if kern.radiance:
+        tallies['rad'] = _close_tally(f'flight_post image at {b} lanes',
+                                      rad_f, ref.rad, 1e-5, 1e-4)
+    if kern.tally_absorbed:
+        # against the plain version's own deposits (_step_post's absorbed
+        # tally: the collision layer gets wsc (1 - ssa) exp(labs)) summed
+        # in float64.  On the card its index_add_ adds them one f32 atomic
+        # at a time, ~10^4 to an entry at the full batch, and that
+        # rounding reaches 1e-4 of an entry; the plain tally is held to
+        # the same sum only
+        ng = kern.st.ng
+        ab_c = torch.where(mid.accept, mid.wsc * (1.0 - mid.ssa_ev), 0.0)
+        exact = base_ab.index_add(0, mid.l_col, (
+            torch.exp(mid.labs[:ng]) * ab_c[None, :]).T.double())
+        tallies['absorbed'] = _close_tally(
+            f'flight_post absorbed at {b} lanes', ab_f, exact, 1e-5, 1e-4)
+        plain_err = float((ref.absorbed.double() - exact).abs().max())
+        tallies['absorbed_plain'] = (plain_err,
+                                     plain_err / float(exact.abs().max()))
+        check(abs(float(ref.absorbed.double().sum() - exact.sum()))
+              <= 1e-5 * float(exact.sum()),
+              f'plain post half absorbed at {b} lanes: sum')
+    lanes = {f: getattr(mid, f).clone() for f in flight_post._OUT}
+    # bytes: every input row read once, every lane row written once; its
+    # float operations (a few hundred a lane) take under a tenth of their
+    # time at F32_FLOPS and are not counted
+    nbytes = (sum(getattr(mid, f).numel() * getattr(mid, f).element_size()
+                  for f, _ in flight_post._IN) + 4 * b * (2 + 6)
+              + sum(t.numel() * t.element_size() for t in lanes.values()))
+    bound_ms, bound_by = bound((nbytes, 0))
+    return dict(case=f'{b}_lanes', lanes=b,
+                ms=device_ms(lambda: kern._step_post_fused(mid_f, *pair,
+                                                           out=lanes)),
+                plain_ms=device_ms(_graphed(
+                    lambda: kern._step_post(mid, *pair), mid.x.device)),
+                library_ms=None, floor_ms=floor_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, ops=0, max_abs_err=err,
+                tally_err=tallies, decided_alike=_share_equal(same, True),
+                alive_share=float(mid.alive.double().mean()))
+
+
+def tally_case(kern, c, u, q_off, u_split, u_imp, floor_ms):
+    """The first half of one captured heating-rate step with its
+    domain-average tallies added by the kernel (csrc/domain_tally.cu)
+    against the dense branch of FlightKernel._step_pre, both from zeroed
+    tallies, at the card test's tolerances: the first half's lanes and
+    locals bit for bit, one launch, flux and absorbed by _close_tally
+    (1e-4, 3e-4).  Then timed: the kernel alone, and the first half
+    replayed with each (``plain_ms``: the dense branch's share by their
+    difference, plus the kernel's).  Returns its row."""
+    def zeroed(c):
+        return c._replace(flux=torch.zeros_like(c.flux),
+                          absorbed=torch.zeros_like(c.absorbed))
+    c_p, c_f = zeroed(c), zeroed(c)
+    kern.fused_tally = False
+    try:
+        _, mid = kern._step_pre(c_p, u, q_off, u_split, u_imp)
+    finally:
+        kern.fused_tally = True
+    calls = []
+    plain_tally = mc_flight.domain_tally
+
+    def recorded(*a):
+        calls.append(a)
+        return plain_tally(*a)
+    mc_flight.domain_tally = recorded
+    try:
+        _, mid_f = kern._step_pre(c_f, u, q_off, u_split, u_imp)
+    finally:
+        mc_flight.domain_tally = plain_tally
+    torch.cuda.synchronize()
+    b = int(mid.x.shape[0])
+    check(len(calls) == 1, f'domain_tally launched {len(calls)} times in '
+                           f'one first half')
+    for f in mid._fields:
+        if f != 'c' and isinstance(getattr(mid, f), torch.Tensor):
+            check(torch.equal(getattr(mid_f, f), getattr(mid, f)),
+                  f'domain_tally at {b} lanes: {f} of the first half')
+    err, rel = map(max, zip(*(
+        _close_tally(f'domain_tally {f} at {b} lanes', getattr(c_f, f),
+                     getattr(c_p, f), 1e-4, 3e-4)
+        for f in ('flux', 'absorbed'))))
+    a = calls[0]
+    flux, absorbed = torch.zeros_like(c.flux), torch.zeros_like(c.absorbed)
+    ms = device_ms(lambda: plain_tally(*a[:-2], flux, absorbed))
+    pre_ms = {}
+    for fused in (False, True):
+        kern.fused_tally = fused
+        try:
+            pre_ms[fused] = device_ms(_graphed(
+                lambda: kern._step_pre(c_p, u, q_off, u_split, u_imp),
+                mid.x.device))
+        finally:
+            kern.fused_tally = True
+    # bytes: a lane's activity flag, and of an active lane its flight,
+    # flags, Ng log-transmissions and Nz layer paths; the tallies
+    st = kern.st
+    n_act = int(a[8].sum())
+    nbytes = (b + n_act * (4 * (5 + st.ng + st.nz) + 2)
+              + 4 * (kern.scene.z_lev.numel() + kern.scene.kabs.numel())
+              + 8 * (flux.numel() + absorbed.numel()))
+    bound_ms, bound_by = bound((nbytes, 0))
+    return dict(case=f'{b}_lanes', lanes=b, ms=ms,
+                plain_ms=pre_ms[False] - pre_ms[True] + ms,
+                pre_plain_ms=pre_ms[False], pre_fused_ms=pre_ms[True],
+                library_ms=None, floor_ms=floor_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, ops=0, max_abs_err=err,
+                max_err_of_largest=rel, active_share=n_act / b)
+
+
+def fused_cases(what, cap, case, floor_ms):
+    """``case`` (post_case or tally_case) at each batch width of a flight
+    of BATCH lanes (BATCH, and its drain stages of B/8 and B/64 lanes down
+    to 256), from the steps that ``cap`` (a StepCapture) kept: width ->
+    row."""
+    widths = [BATCH] + [BATCH >> k for k in (3, 6) if BATCH >> k >= 256]
+    check(sorted(cap.steps, reverse=True) == widths,
+          f'{what}: captured steps at widths {sorted(cap.steps)}, not '
+          f'{widths}')
+    rows = {}
+    for b in sorted(cap.steps, reverse=True):
+        rows[b] = case(*cap.steps[b], floor_ms)
+        log(f'# {what} {b} lanes: {json.dumps(rows[b])}')
+    return rows
 
 
 # ---- what each kernel must move: (bytes, float operations) ----
@@ -1382,9 +1661,11 @@ def run(args, dev, phases=PHASES):
     trace.reset()
     trace.enable()
     t0 = time.perf_counter()
-    tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph, args.seed + 2,
-                                         dev, rad_w=rad_w, stats=stats)
-    img = tal.rad.cpu().numpy()
+    with StepCapture() as cap:
+        tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph,
+                                             args.seed + 2, dev, rad_w=rad_w,
+                                             stats=stats)
+        img = tal.rad.cpu().numpy()
     wall = time.perf_counter() - t0
     read_s = read_back_s()
     launches = phase_pair.launches
@@ -1406,11 +1687,28 @@ def run(args, dev, phases=PHASES):
                 lane_iters=float(tal.lane_iters), ms_per_step=1e3 * wall / steps,
                 stage_steps=stats['stage_steps'],
                 phase_pair_launches=launches, launches=main_counts,
+                fused_post_steps=stats['fused_post_steps'],
                 host_read_s=read_s, host_read_share=read_s / wall,
                 domain_mean=mean, ref_mean=ref['ref'], tol=ref['tol'],
                 rel_diff=ref['rel_diff'])
     report['main'] = main
     log('# main path: ' + json.dumps(main))
+
+    # the post half as one kernel (on the card: FlightKernel.fused_post),
+    # from the main path's own steps at its three widths
+    report['fused'] = {}
+    (kern,) = cap.kernels
+    check(kern.fused_post or dev.type != 'cuda',
+          'main path: the post half is not fused on the card')
+    check(cap.n_steps == [steps] and stats['fused_post_steps']
+          == kern.fused_steps == (steps if kern.fused_post else 0),
+          f'main path: {stats["fused_post_steps"]} fused post halves in '
+          f'{steps} steps')
+    if kern.fused_post:
+        report['fused']['flight_post'] = dict(
+            launches=kern.fused_steps, rows=fused_cases(
+                'flight_post', cap, post_case, floor_ms))
+    del cap, kern
 
     if args.profile:
         report['profile'] = profile_steps(scene, st, cfg, dev, rad_w=rad_w)
@@ -1437,7 +1735,7 @@ def run(args, dev, phases=PHASES):
 
     # ---- 4b. flux path ----
     if 'flux' in phases:
-        flux_phase(args, dev, atm, ab, scene_kw, scene, st, report)
+        flux_phase(args, dev, atm, ab, scene_kw, scene, st, floor_ms, report)
 
     # ---- 7. the other solvers, sensors and knobs ----
     if 'modes' in phases:
@@ -1514,7 +1812,21 @@ def run(args, dev, phases=PHASES):
     for name in SWEEPS if 'sweeps' in phases else ():
         pp_entry[f'sweeps_{name}_launches'] = \
             report['sweeps'][name]['phase_pair_launches']
-    kernels = {'kernels': [pp_entry] + [
+    fused_entries = []
+    for name, (source, replaces) in FUSED_KERNELS.items():
+        rec = report['fused'].get(name)
+        if rec is None or 'rows' not in rec:
+            continue
+        checked = [*rec['rows'].values(), *rec.get('hr_rows', {}).values()]
+        e = entry(name, source, replaces, rec['launches'],
+                  max(r['max_abs_err'] for r in checked), rec['rows'][BATCH])
+        e['cases'] = {r['case']: {k: r[k] for k in ('ms', 'plain_ms',
+                                                      'bound_ms')}
+                      for r in rec['rows'].values()}
+        if 'hr_launches' in rec:
+            e['hr_launches'] = rec['hr_launches']
+        fused_entries.append(e)
+    kernels = {'kernels': [pp_entry] + fused_entries + [
         entry(name, source, replaces, probe_counts[name], probe_err[name],
               probe_kt[name]) for name, (source, replaces)
         in PROBE_KERNELS.items() if name in probe_kt]}
@@ -1629,7 +1941,7 @@ def independent_phase(args, dev, atm, ab, scene_kw, st, corr, report):
         {k: v for k, v in report['independent'].items() if k != 'passes'}))
 
 
-def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
+def flux_phase(args, dev, atm, ab, scene_kw, scene, st, floor_ms, report):
     """Phase 4b: the flux path of the flight kernel and the heating-rate
     front door on the bench scene (see the module docstring)."""
     cfg = SolverConfig(target='flux', batch=BATCH, n_scat_max=600,
@@ -1694,10 +2006,11 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
 
     reset_counts()
     t0 = time.perf_counter()
-    res = solve(atm=atm, abs_coef=ab, **scene_kw, target='heating_rate',
-                photons=HR_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
-                qmc_launch=True, n_scat_max=600, seed=args.seed + 6,
-                device=dev)
+    with StepCapture() as cap:
+        res = solve(atm=atm, abs_coef=ab, **scene_kw, target='heating_rate',
+                    photons=HR_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
+                    qmc_launch=True, n_scat_max=600, seed=args.seed + 6,
+                    device=dev)
     wall = time.perf_counter() - t0
     hr = np.asarray(res['hr'])
     check(hr.shape == (st.nz,) and np.isfinite(hr).all()
@@ -1718,6 +2031,25 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, report):
                                     HR_REF_RUNS, HR_REF_PHOTONS,
                                     2 * HR_PHOTONS, 0.02))
     log('# heating rate: ' + json.dumps(report['heating_rate']))
+
+    # its domain-average tallies as one kernel (on the card:
+    # FlightKernel.fused_tally) and its post half, from its own steps
+    on = cap.kernels[0].fused_tally
+    check(on or dev.type != 'cuda',
+          'heating rate: the tallies are not fused on the card')
+    check(all(k.fused_tally == k.fused_post == on for k in cap.kernels)
+          and [k.fused_steps for k in cap.kernels]
+          == [n if on else 0 for n in cap.n_steps],
+          f'heating rate: {[k.fused_steps for k in cap.kernels]} fused '
+          f'steps in {cap.n_steps}')
+    if on:
+        post = report['fused'].setdefault('flight_post', {})
+        post['hr_rows'] = fused_cases('flight_post, heating rate', cap,
+                                      post_case, floor_ms)
+        post['hr_launches'] = sum(cap.n_steps)
+        report['fused']['domain_tally'] = dict(
+            launches=sum(cap.n_steps), rows=fused_cases(
+                'domain_tally', cap, tally_case, floor_ms))
 
 
 def path_run(name, fn, entry='run_transport_flight', module=solver,

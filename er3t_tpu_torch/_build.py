@@ -22,7 +22,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ['load', 'build', 'build_all', 'launch', 'lib_path', 'CudaError',
+__all__ = ['load', 'load_together', 'build', 'build_all', 'launch',
+           'launch_struct', 'ptr', 'lib_path', 'CudaError',
            'BUILD_DIR', 'NVCC_FLAGS', 'KERNELS']
 
 _PKG = Path(__file__).resolve().parent
@@ -38,6 +39,12 @@ _PAIR = [_c, _c, _c, _c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _c]
 KERNELS = {
     'phase_pair': ('phase_pair.cu', 'er3t_phase_pair', _PAIR),
     'phase_pair_bf16': ('phase_pair.cu', 'er3t_phase_pair_bf16', _PAIR),
+    'flight_post': ('flight_post.cu', 'er3t_flight_post', [_c, _c]),
+    'flight_post_args_size': ('flight_post.cu', 'er3t_flight_post_args_size',
+                              [_c]),
+    'domain_tally': ('domain_tally.cu', 'er3t_domain_tally', [_c, _c]),
+    'domain_tally_args_size': ('domain_tally.cu',
+                               'er3t_domain_tally_args_size', [_c]),
     'take_reps': ('gather_probe.cu', 'er3t_take_reps',
                   [_c, _c, _c, _i, _i, _i, _i, _c]),
     'gather_row_sum': ('gather_probe.cu', 'er3t_gather_row_sum',
@@ -106,16 +113,32 @@ def build(name: str) -> Path:
     return lib
 
 
-def build_all() -> dict[str, Path]:
-    """Build every source of ``csrc/`` at once, one ``nvcc`` per source
-    started together; source stem -> library path."""
+def _build_together(names) -> dict[str, Path]:
+    """Build the sources of kernels ``names`` at once, one ``nvcc`` per
+    source started together; source stem -> library path."""
     first = {}                          # one kernel name per source
-    for name, (source, _, _) in KERNELS.items():
-        first.setdefault(Path(source).stem, name)
+    for name in names:
+        first.setdefault(Path(KERNELS[name][0]).stem, name)
     with ThreadPoolExecutor(len(first)) as pool:
         futures = {stem: pool.submit(build, name)
                    for stem, name in first.items()}
         return {stem: f.result() for stem, f in futures.items()}
+
+
+def build_all() -> dict[str, Path]:
+    """Build every source of ``csrc/`` at once (see
+    :func:`_build_together`); source stem -> library path."""
+    return _build_together(KERNELS)
+
+
+def load_together(*names) -> None:
+    """Load kernels ``names``; the libraries missing among theirs are
+    built at once, one ``nvcc`` per source in parallel."""
+    missing = [n for n in names if n not in _loaded]
+    if len(missing) > 1:
+        _build_together(missing)
+    for name in missing:
+        load(name)
 
 
 def load(name: str):
@@ -139,3 +162,34 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise CudaError(name, err)
+
+
+_sized: set = set()                     # kernels whose struct size matched
+
+
+def launch_struct(name: str, device: torch.device, args) -> None:
+    """Launch kernel ``name``, whose one argument is a C struct, with
+    ``args`` (its :class:`ctypes.Structure` mirror) on ``device``'s current
+    stream.  At the first launch the mirror's size is checked against the
+    library's (the entry point ``<name>_args_size``)."""
+    if name not in _sized:
+        size = load(name + '_args_size')(None)
+        if size != ctypes.sizeof(args):
+            raise RuntimeError(f"{name}: the kernel's argument has {size} "
+                               f'bytes, {type(args).__name__} '
+                               f'{ctypes.sizeof(args)}')
+        _sized.add(name)
+    launch(name, device, ctypes.addressof(args))
+
+
+def ptr(t: torch.Tensor, name: str, dtype: torch.dtype, numel: int,
+        device: torch.device) -> int:
+    """The address of tensor ``t`` (argument ``name`` of a kernel), once
+    it is checked to be a contiguous ``dtype`` tensor of ``numel``
+    elements on ``device``."""
+    if t.dtype != dtype or t.device != device or not t.is_contiguous() \
+            or t.numel() != numel:
+        raise ValueError(f'{name} must be a contiguous {dtype} tensor of '
+                         f'{numel} elements on {device}, got {t.dtype} '
+                         f'{tuple(t.shape)} on {t.device}')
+    return t.data_ptr()

@@ -21,7 +21,9 @@ differs is the execution shape:
   kernel into :meth:`~FlightKernel._step_pre` and
   :meth:`~FlightKernel._step_post`, captured once per batch width as two
   CUDA graphs (:class:`_StepGraphs`) and replayed, with the kernel
-  launched between them.
+  launched between them.  Where :func:`.flight_post.applies`, the card
+  runs :meth:`~FlightKernel._step_post` as one hand-written kernel
+  (``FlightKernel.fused_post``).
 * drain compaction and lane sorting permute each lane field with one
   ``argsort``; the port carries int lanes as int tensors, so no f32
   lane-matrix packing (and no 2^24 guard) is needed.
@@ -66,6 +68,8 @@ from ..util import trace
 from .mc import (SolverConfig, Tallies, _sensor_dir, draw_deviates,
                  read_counts, resolve_device, rotate)
 from .phase_pair import phase_pair
+from .flight_post import applies as post_applies, fused_post
+from .domain_tally import domain_tally
 from .brdf import brdf_eval, brdf_sample_dir_weight
 from .scene import SceneArrays, SceneStatic, camera_rotation
 
@@ -280,6 +284,18 @@ class FlightKernel:
     captured CUDA graphs (the caller sets it; :func:`transport_flight`
     does on the card).  ``graph_stats`` counts the graphs captured, the
     steps replayed and the steps run eagerly while replaying.
+
+    ``fused_post``: on the card, where :func:`.flight_post.applies` (a
+    satellite image contracted over g in the step, or flux; no camera,
+    pathlength, pinned column, slab or deposit ablation), every step runs
+    its post half as the kernel of ``csrc/flight_post.cu``
+    (:func:`.flight_post.fused_post`), eagerly and in the replayed graphs
+    alike; ``fused_steps`` counts those steps.  Elsewhere the post half is
+    :meth:`_step_post`, the kernel's plain version.  ``fused_tally``: where
+    ``fused_post`` holds, a domain-average flux run without collision
+    forcing (the heating rate) also adds its level-crossing and absorbed
+    tallies by one kernel (:func:`.domain_tally.domain_tally`) in place of
+    the dense (B, Nz+1, Ng) branch of :meth:`_step_pre`.
     """
 
     outcome = sfc_branch = tile_stops = None
@@ -453,6 +469,17 @@ class FlightKernel:
         self.q_stride = (1 if cfg.launch_coherent
                          else _coprime_stride(self.n_cell))
 
+        # the post half as one kernel on the card, and with it the
+        # domain-average tallies of unforced flights; their libraries and
+        # K1's are built together (one nvcc each, in parallel)
+        self.fused_post = dev.type == 'cuda' and post_applies(self)
+        self.fused_tally = (self.fused_post and self.tally_absorbed
+                            and cfg.cf_dtau <= 0)
+        self.fused_steps = 0
+        if self.fused_post:
+            from .._build import load_together
+            load_together('phase_pair', 'flight_post', 'domain_tally')
+
     # ------------------------------------------------------------------
     def carry0(self, batch: int) -> FlightCarry:
         """All-dead initial state for ``batch`` lanes."""
@@ -618,6 +645,8 @@ class FlightKernel:
         and ``launched`` are then the graphs' own buffers, which the next
         step at that width overwrites.
         """
+        if self.fused_post:
+            self.fused_steps += 1
         g = None
         if self.graphs is not None:
             b = c.x.shape[0]
@@ -628,8 +657,8 @@ class FlightKernel:
         if g is not None:
             return g.run(c, u, q_off, u_split, u_imp)
         k1, mid = self._step_pre(c, u, q_off, u_split, u_imp)
-        return self._step_post(mid, *(k1 if 'phase' in self.ablate
-                                      else phase_pair(*k1)))
+        post = self._step_post_fused if self.fused_post else self._step_post
+        return post(mid, *(k1 if 'phase' in self.ablate else phase_pair(*k1)))
 
     def deviate_buffers(self, b: int) -> dict:
         """The buffers from which the replayed step at batch width ``b``
@@ -924,6 +953,10 @@ class FlightKernel:
                         w_k * self.flux_w[lev_c], dim=2).reshape(-1))
                 else:
                     flux.index_add_(0, pidx, w_k.reshape(-1, ng))
+            elif self.fused_tally:
+                # the domain-average tallies below, as one kernel
+                domain_tally(self, z, uz, inv_uz, s_star, wsc, labs, trav,
+                             active, term, direct, flux, absorbed)
             else:
                 # every crossing of the flight; the terminal surface/TOA
                 # crossing and the level-0 crossing of a surface-reflected
@@ -1300,6 +1333,16 @@ class FlightKernel:
                            launched=launched, step=c.step + 1, rad=rad,
                            rad_pl=rad_pl, flux=flux, absorbed=absorbed)
 
+    def _step_post_fused(self, mid: _Mid, pe_pair, mu_new,
+                         out: dict | None = None) -> FlightCarry:
+        """:meth:`_step_post` as one kernel launch (``fused_post``);
+        ``out``: the lanes to write, as :func:`.flight_post.fused_post`
+        takes them."""
+        trace.phase('step.post')
+        c = fused_post(self, mid, pe_pair, mu_new, out=out)
+        trace.phase(None)
+        return c
+
     def _camera_estimate(self, l_col, vt, z_hi_col, z, tau3_above, labs,
                          tau_sens_abs, tau_sens_sig, wsc, ssa_ev, pval,
                          r_cam, wsx_c, wsy_c, wsz_c, jsfc_l, psfc_l, ux, uy,
@@ -1366,6 +1409,9 @@ class _StepGraphs:
     copied to where graph ``post`` reads them; ``post`` is
     :meth:`FlightKernel._step_post` and ends by copying the new lanes into
     the static lanes, so the carry it leaves is the next step's input.
+    Where the kernel's ``fused_post`` holds, ``post`` is the one launch of
+    :meth:`FlightKernel._step_post_fused`, which writes the new lanes into
+    the static lanes itself.
     Under the ``'phase'`` ablation ``post`` reads ``pre``'s stand-in pair.
 
     The tallies, the outcome counts and ``q_off`` are captured where they
@@ -1422,8 +1468,11 @@ class _StepGraphs:
         self.pool = None
 
         def post():
-            out = kern._step_post(self.mid, *(
-                self.k1 if 'phase' in kern.ablate else self.pair))
+            pair = self.k1 if 'phase' in kern.ablate else self.pair
+            if kern.fused_post:
+                kern._step_post_fused(self.mid, *pair, out=self.lanes)
+                return
+            out = kern._step_post(self.mid, *pair)
             for f, t in self.lanes.items():
                 t.copy_(getattr(out, f))
 
@@ -1474,11 +1523,13 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     step and no lane splits, ``lane_slots`` and ``idle_lanes``: the lane
     slots of all steps, and those of them with no live photon (a step's
     live lanes are those alive before it and those it launches, from the
-    two numbers read back), and ``graph_steps``, the steps replayed from
-    captured CUDA graphs.  On the card the step replays: the first step at
-    each batch width runs eagerly, every later one replays that width's
-    two graphs (:meth:`FlightKernel.step`), into whose buffers the loop
-    draws the deviates; the graphs and their memory are freed before the
+    two numbers read back), ``graph_steps``, the steps replayed from
+    captured CUDA graphs, and ``fused_post_steps``, the steps whose post
+    half ran as one kernel (``FlightKernel.fused_post``).  On the card the
+    step replays: the first step at each batch width runs eagerly, every
+    later one replays that width's two graphs (:meth:`FlightKernel.step`),
+    into whose buffers the loop draws the deviates; the graphs and their
+    memory are freed before the
     flight returns.  Traced (:mod:`er3t_tpu_torch.util.trace`),
     the loop records the spans ``flight.deviates``, ``flight.step``,
     ``flight.read`` and ``flight.compact`` (and ``flight.graph.capture``
@@ -1486,7 +1537,8 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     ``flight.lane_slots`` and ``flight.idle_lanes``, the graphs captured,
     the steps replayed and the steps run eagerly while replaying as
     ``flight.graph.captures``, ``flight.graph.replays`` and
-    ``flight.graph.eager_steps``, and the classes of
+    ``flight.graph.eager_steps``, the fused post halves as
+    ``flight.post.fused_steps``, and the classes of
     every active lane iteration (:data:`OUTCOMES`, counted on the device
     and read once at the end) as ``flight.iter_outcome.<class>`` and in
     ``stats['iter_outcome']``.  Traced or given ``stats``, a flight over a
@@ -1590,6 +1642,7 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         trace.count('flight.idle_lanes', lanes[1])
     for k, v in kern.graph_stats.items():
         trace.count('flight.graph.' + k, v)
+    trace.count('flight.post.fused_steps', kern.fused_steps)
     # the device's counters, read back once
     outcome = branch = tiles = None
     ctrs = [t for t in (kern.outcome, kern.sfc_branch, kern.tile_stops)
@@ -1611,7 +1664,8 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         in_flight = read_counts(c, dev)[0]
         stats.update(stage_steps=stage_steps, max_steps=max_steps,
                      in_flight=in_flight,
-                     graph_steps=kern.graph_stats['replays'])
+                     graph_steps=kern.graph_stats['replays'],
+                     fused_post_steps=kern.fused_steps)
         if lanes is not None:
             stats.update(lane_slots=lanes[0], idle_lanes=lanes[1])
         if outcome is not None:

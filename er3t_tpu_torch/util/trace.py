@@ -29,7 +29,8 @@ The spans, from the request down (``solve.*`` in ``rtm/solver.py``,
         flight.deviates        the step's deviates
         flight.step            one FlightKernel.step (or marching step)
           step.split, step.respawn, step.move, step.collide,
-          step.estimate, step.turn, step.roulette
+          step.estimate, step.turn, step.roulette, or in their place
+          step.post (the second half as one kernel)
                                (on the card: only while capturing)
           flight.graph.capture   one captured half of a replayed step
         flight.read            the loop's per-step read-back:
@@ -47,7 +48,9 @@ step as ``real``, ``null`` collision, ``surface`` hit, ``toa`` escape or
 ``stopped`` short of its end at a crossing or slab clamp) and
 ``flight.graph.captures``, ``flight.graph.replays`` and
 ``flight.graph.eager_steps`` (the CUDA graphs captured, the steps replayed
-from them, the steps run eagerly while replaying); see
+from them, the steps run eagerly while replaying) and
+``flight.post.fused_steps`` (the steps whose second half ran as one
+kernel); see
 :func:`~er3t_tpu_torch.rtm.mc_flight.transport_flight`.
 
 Memory grows with the spans recorded (about a dozen a flight step), until

@@ -37,9 +37,12 @@ from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre import pha
 from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.probes import gather, gather_probe
-from er3t_tpu_torch.rtm import mc, mc_flight
+from er3t_tpu_torch.rtm import domain_tally, flight_post, mc, mc_flight
 from er3t_tpu_torch.rtm import phase_pair as pp
 from er3t_tpu_torch.rtm.scene import build_scene
+
+import test_torch_fused_post as fused_post_mod
+from test_torch_fused_post import host_twin  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
 
@@ -351,6 +354,64 @@ def test_chip_smoke_run_rehearsed_on_cpu(rehearsal, capsys):
     probe_tags = [r['probe'] for r in report['probes']]
     assert probe_tags.count('launch_floor') == 1
     assert probe_tags.count('timing_methods') == 3
+
+
+def test_fused_kernels_checked_in_the_rehearsal(rehearsal, capsys,
+                                               monkeypatch, host_twin):
+    """Phases 1-4 and 4b with the flight kernels fused as on the card,
+    through the host build of their bodies (test_torch_fused_post.py):
+    the main path's post half and the heating rate's tallies and post half
+    are held against their plain versions at the captured steps of each
+    of their widths (the full batch, 2048 here, and its drain stage),
+    each kernel gets its entry in the kernels line (its cases a width),
+    and its launches are the steps of its path."""
+    init = mc_flight.FlightKernel.__init__
+
+    def init_fused(kern, *a, **kw):
+        init(kern, *a, **kw)
+        fused_post_mod._fuse_on_cpu(kern)
+    monkeypatch.setattr(mc_flight.FlightKernel, '__init__', init_fused)
+    monkeypatch.setattr(flight_post, '_card_entry',
+                        lambda dev: host_twin['post'])
+    monkeypatch.setattr(domain_tally, '_card_entry',
+                        lambda dev: host_twin['tally'])
+    # the least batch that drains (to B/8 lanes; B/64 from 2^14)
+    monkeypatch.setattr(chip_smoke, 'BATCH', 2048)
+    args = type('A', (), {'seed': 0, 'profile': False})()
+    assert chip_smoke.run(args, torch.device('cpu'), phases=('flux',)) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    kernels = json.loads(lines[-2])['kernels']
+    report = json.loads((rehearsal / 'chip_smoke.json').read_text())
+    main = report['main']
+    assert main['fused_post_steps'] == main['steps'] > 0
+    assert [k['name'] for k in kernels] == ['phase_pair', 'flight_post',
+                                            'domain_tally']
+    post, tally = kernels[1:]
+    assert post['launches'] == main['steps']
+    assert post['hr_launches'] == tally['launches'] > 0
+    widths = ['2048_lanes', '256_lanes']
+    for k in (post, tally):
+        assert set(k) == KEYS | {'cases'} | (
+            {'hr_launches'} if k is post else set()), k['name']
+        assert k['source'] == chip_smoke.FUSED_KERNELS[k['name']][0]
+        assert k['max_abs_err'] >= 0.0, k['name']
+        assert k['ms'] == k['plain_ms'] == k['floor_ms'] == 1.0
+        assert k['bound_by'] == 'bytes' and k['library_ms'] is None
+        assert list(k['cases']) == widths, k['name']
+        assert all(0 < c['bound_ms'] < 1.0 for c in k['cases'].values())
+    fused = report['fused']
+    assert [r['lanes'] for r in fused['flight_post']['hr_rows'].values()] \
+        == [2048, 256]
+    assert all(r['tally_err'].keys() == {'rad'}
+               for r in fused['flight_post']['rows'].values())
+    assert all(r['tally_err'].keys() == {'absorbed', 'absorbed_plain'}
+               for r in fused['flight_post']['hr_rows'].values())
+    assert post['max_abs_err'] <= 1e-4
+    for r in fused['domain_tally']['rows'].values():
+        assert 0 < r['active_share'] <= 1 and r['max_err_of_largest'] <= 1e-5
+    for r in [*fused['flight_post']['rows'].values(),
+              *fused['flight_post']['hr_rows'].values()]:
+        assert all(rel <= 1e-5 for _, rel in r['tally_err'].values())
 
 
 def check_march(lines, report, kernels):

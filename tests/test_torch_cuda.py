@@ -19,14 +19,16 @@ from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
 from er3t_tpu_torch.pre.pha import pha_mie_wc
+from er3t_tpu_torch.pre.sfc import sfc_ocean
 from er3t_tpu_torch.probes import gather
 from er3t_tpu_torch.probes.gather_probe import device_ms
-from er3t_tpu_torch.rtm import mc, mc_flight
+from er3t_tpu_torch.rtm import flight_post, mc, mc_flight
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import spectral_factors
 from er3t_tpu_torch.rtm.phase_pair import phase_pair, phase_pair_ref
 from er3t_tpu_torch.rtm.quasi import quasi_radiance
 from er3t_tpu_torch.rtm.scene import build_scene
+from er3t_tpu_torch.rtm.solver import g_slice
 from er3t_tpu_torch.util import trace
 
 torch.set_num_threads(2)
@@ -299,6 +301,8 @@ GRAPH_MODES = {
     'camera_importance': dict(target='radiance', sensor_type='camera',
                               cam_npix=16, cam_importance_sigma=500.0),
     'split_rr_value': dict(target='radiance', split_wmax=0.5, rr_value=0.1),
+    # a Cox-Munk ocean (u10 = 10: ~1 % whitecaps) with its branch counters
+    'ocean': dict(target='radiance'),
 }
 _MIE = []
 
@@ -313,10 +317,18 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
     iterations, outcome counts, K1 once a step), tallies within 1e-5 of
     their largest entry (the order of the deposits' atomics), one eager
     step and two captures per batch width, and the graphs' memory freed
-    when the flight returns."""
+    when the flight returns.  The radiance (rad_w), flux, heating-rate and
+    ocean modes run the post half as the fused kernel, eagerly and in
+    graph ``post`` alike (every step counted in ``fused_post_steps``, the
+    ocean's surface branches equal); the camera and IPA modes keep the
+    plain post half in the graphs."""
     atm, ab, kw = _broken_inputs()
     if not _MIE:
         _MIE.append(pha_mie_wc(650.0))
+    if mode == 'ocean':
+        kw = dict(kw, surface=sfc_ocean(650.0, u10=10.0))
+    fused = mode in ('radiance_mie_rad_w', 'flux_kx4_flux_w', 'heating_rate',
+                     'ocean', 'split_rr_value')
     scene, st = build_scene(atm, ab, **kw, pha=_MIE[0], device=cuda)
     if mode == 'ipa':
         st = dataclasses.replace(st, ipa=True)
@@ -366,7 +378,10 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
         assert all(n >= 2 for n in stats['stage_steps'])
         assert stats['stage_steps'] == ref_stats['stage_steps']
         assert stats['iter_outcome'] == ref_stats['iter_outcome']
+        assert stats.get('sfc_branch') == ref_stats.get('sfc_branch')
         assert steps == int(ref.n_steps) == sum(stats['stage_steps'])
+        assert stats['fused_post_steps'] == ref_stats['fused_post_steps'] \
+            == (steps if fused else 0) == ctr['flight.post.fused_steps']
         assert int(got.n_launched) == int(ref.n_launched) == 100000
         assert float(got.lane_iters) == float(ref.lane_iters)
         assert k1 == ref_k1 == steps
@@ -380,6 +395,171 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
                                        msg=f)
         assert grown < (4 << 20 if k else 80 << 20), (k, grown)
     assert float(got.rad.sum() + got.flux.sum()) > 0
+
+POST_MODES = ('radiance_lambertian_16g', 'per_g', 'ocean',
+              'flux_kx4_flux_w', 'heating_rate')
+
+
+def _counted_launches(monkeypatch, module):
+    """A one-element list counting the card launches of ``module``'s
+    kernel (through its ``_card_entry``) from now on."""
+    n = [0]
+    card = module._card_entry
+
+    def entry(dev):
+        launch = card(dev)
+
+        def counted(a):
+            n[0] += 1
+            launch(a)
+        return counted
+    monkeypatch.setattr(module, '_card_entry', entry)
+    return n
+
+
+def _post_kernels(mode, cuda):
+    """Two card kernels of ``mode`` on the 32x32 broken-cloud scene at
+    16 g-points (each with its own counters): the plain side's and the
+    fused side's."""
+    atm, _, kw = _broken_inputs()
+    ab = abs_synthetic(650.0, atm, ng=16)
+    cfg = dict(target='radiance')
+    if mode == 'ocean':
+        kw = dict(kw, surface=sfc_ocean(650.0, u10=10.0))
+    if mode.startswith('flux'):
+        cfg = dict(target='flux', flux_per_column=True, flux_kcross=4)
+    if mode == 'heating_rate':
+        cfg = dict(target='flux', flux_per_column=False)
+    scene, st = build_scene(atm, ab, **kw, device=cuda)
+    extra = {}
+    if cfg['target'] == 'radiance':
+        extra['rad_w'] = spectral_factors(ab, nz_out=1)[0][0]
+    if mode == 'per_g':
+        scene, st = g_slice(scene, st, 5)
+        extra['rad_w'] = np.ones(1, np.float32)
+    if mode.startswith('flux'):
+        extra['flux_w'] = spectral_factors(ab, nz_out=st.nz + 1)[0]
+    conf = SolverConfig(batch=1 << 14, n_scat_max=300, tile_size=16,
+                        qmc_launch=True, **cfg)
+    out = []
+    for _ in range(2):
+        k = mc_flight.FlightKernel(scene, st, conf, 200000, **extra)
+        k.outcome = torch.zeros(5, dtype=torch.int64, device=cuda)
+        k.tile_stops = torch.zeros(2, dtype=torch.int64, device=cuda)
+        if mode == 'ocean':
+            k.sfc_branch = torch.zeros(3, dtype=torch.int64, device=cuda)
+        out.append(k)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', POST_MODES)
+def test_fused_post_kernel_matches_the_plain_post_half_on_the_card(
+        cuda, mode, monkeypatch):
+    """The kernel of csrc/flight_post.cu against the plain post half
+    (FlightKernel._step_post) on the card, from one _Mid and K1 pair a
+    step, for eight steps of 2^14 lanes: every mode of the benchmark's
+    cells (Lambertian radiance with rad_w at 16 g, per-g at ng = 1, a
+    Cox-Munk ocean with its branch counters, per-column flux with flux_w,
+    the heating rate's absorbed tally).  Lanes passed through bit for bit;
+    continuous lane fields to rtol 1e-4 / atol 1e-5 (FMA contraction and
+    the two builds' transcendentals, carried through rotate's
+    normalisation and near-vertical denominators; the card-against-CPU
+    tolerance of the step tests); the decisions alive, nscat and direct
+    equal on >= 99.9 % of lanes (a roulette draw within an ulp of its
+    threshold may go either way); the counters equal; the image and
+    absorbed tallies' sums to 1e-5 (float atomics in another order) and
+    >= 99.9 % of their entries to 1e-4; one launch a step."""
+    kp, kf = _post_kernels(mode, cuda)
+    assert kf.fused_post and kp.fused_post
+    launches = _counted_launches(monkeypatch, flight_post)
+    rng = np.random.default_rng(11)
+    b = 1 << 14
+    c = kp.carry0(b)
+    rad_f, ab_f = c.rad.clone(), c.absorbed.clone()
+    for k in range(8):
+        u = torch.from_numpy(rng.uniform(1e-7, 1 - 1e-7, (14, b))
+                             .astype(np.float32)).to(cuda)
+        k1, mid = kp._step_pre(c, u, 7)
+        pair = phase_pair(*k1)
+        rad_f.copy_(c.rad)
+        ab_f.copy_(c.absorbed)
+        mid_f = mid._replace(c=mid.c._replace(rad=rad_f, absorbed=ab_f))
+        got = kf._step_post_fused(mid_f, *pair)
+        assert launches[0] == k + 1
+        ref = kp._step_post(mid, *pair)
+        torch.cuda.synchronize()
+        for f in ('x', 'y', 'z', 'labs', 'plen', 'ix0', 'iy0', 'launched'):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), (k, f)
+        for f in ('ux', 'uy', 'uz', 'wsc', 'tau'):
+            torch.testing.assert_close(getattr(got, f), getattr(ref, f),
+                                       rtol=1e-4, atol=1e-5,
+                                       msg=f'{mode} {k} {f}')
+        for f in ('alive', 'nscat', 'direct'):
+            same = (getattr(got, f) == getattr(ref, f)).float().mean()
+            assert float(same) >= 0.999, (k, f)
+        for f in ('outcome', 'tile_stops', 'sfc_branch'):
+            if getattr(kp, f) is not None:
+                assert torch.equal(getattr(kf, f), getattr(kp, f)), (k, f)
+        for t_f, t_p in ((rad_f, ref.rad), (ab_f, ref.absorbed)):
+            a, r = t_f.double(), t_p.double()
+            assert float(a.sum()) == pytest.approx(float(r.sum()), rel=1e-5)
+            close = torch.isclose(a, r, rtol=1e-4,
+                                  atol=1e-6 * float(r.abs().max()))
+            assert float(close.double().mean()) >= 0.999, k
+        c = ref
+    assert int(kp.outcome[0]) > 0
+    if kp.radiance:
+        assert float(c.rad.sum()) > 0
+    if kp.tally_absorbed:
+        assert float(c.absorbed.sum()) > 0
+    if mode == 'ocean':
+        assert int(kp.sfc_branch[0]) > 0 and int(kp.sfc_branch[1]) > 0
+
+
+@pytest.mark.cuda
+def test_fused_domain_tally_matches_the_dense_tally_on_the_card(
+        cuda, monkeypatch):
+    """The kernel of csrc/domain_tally.cu against the dense (B, Nz+1, Ng)
+    branch of FlightKernel._step_pre on the card, for the heating rate at
+    16 g-points, eight steps of 2^14 lanes from one carry and deviates a
+    step: the first half's lanes and locals bit for bit, one launch a
+    step, and the step's flux and absorbed tallies (both sides from zero)
+    to 1e-4 in their sums and 3e-4 in >= 99.9 % of their entries: an
+    entry sums up to 2^14 lanes' f32 weights of order 1 in another order
+    (float atomics over blocks' partial sums against the dense branch's
+    matmul), whose rounding reaches ~1e-4 of the entry."""
+    from er3t_tpu_torch.rtm import domain_tally
+    kp, kf = _post_kernels('heating_rate', cuda)
+    launches = _counted_launches(monkeypatch, domain_tally)
+    assert kp.fused_tally and kf.fused_tally
+    kp.fused_tally = False
+    rng = np.random.default_rng(13)
+    b = 1 << 14
+    c = kp.carry0(b)
+    for k in range(8):
+        u = torch.from_numpy(rng.uniform(1e-7, 1 - 1e-7, (14, b))
+                             .astype(np.float32)).to(cuda)
+        c = c._replace(flux=torch.zeros_like(c.flux),
+                       absorbed=torch.zeros_like(c.absorbed))
+        cf = c._replace(flux=torch.zeros_like(c.flux),
+                        absorbed=torch.zeros_like(c.absorbed))
+        k1, mid = kp._step_pre(c, u, 7)
+        _, mid_f = kf._step_pre(cf, u, 7)
+        assert launches[0] == k + 1
+        torch.cuda.synchronize()
+        for f in mid._fields:
+            if f != 'c' and isinstance(getattr(mid, f), torch.Tensor):
+                assert torch.equal(getattr(mid_f, f), getattr(mid, f)), (k, f)
+        for f in ('flux', 'absorbed'):
+            a, r = getattr(cf, f).double(), getattr(c, f).double()
+            assert float(a.sum()) == pytest.approx(float(r.sum()), rel=1e-4)
+            close = torch.isclose(a, r, rtol=3e-4,
+                                  atol=1e-6 * float(r.abs().max()))
+            assert float(close.double().mean()) >= 0.999, (k, f)
+        assert float(c.flux.sum()) > 0 and float(c.absorbed.sum()) > 0
+        c = kp._step_post(mid, *phase_pair(*k1))
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('wvl', [650.0, 1600.0])

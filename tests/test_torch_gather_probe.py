@@ -403,23 +403,28 @@ def test_library_hash_covers_shared_headers(tmp_path):
     of every source; an edit to one source renames only its own."""
     csrc = tmp_path / 'csrc'
     csrc.mkdir()
-    for f in ('phase_pair.cu', 'gather_probe.cu', 'common.cuh'):
+    for f in ('phase_pair.cu', 'gather_probe.cu', 'flight_post.cu',
+              'domain_tally.cu', 'common.cuh', 'flight_post.cuh',
+              'domain_tally.cuh'):
         (csrc / f).write_bytes((_build._PKG / 'csrc' / f).read_bytes())
     sources = sorted({src for src, _, _ in _build.KERNELS.values()})
-    assert sources == ['gather_probe.cu', 'phase_pair.cu']
+    assert sources == ['domain_tally.cu', 'flight_post.cu', 'gather_probe.cu',
+                       'phase_pair.cu']
 
     def paths():
         return [_build.lib_path(s, csrc, tmp_path) for s in sources]
     first = paths()
     assert first == [_build.lib_path(s, csrc, tmp_path) for s in sources]
-    (csrc / 'common.cuh').write_text((csrc / 'common.cuh').read_text()
-                                     + '// edit\n')
-    second = paths()
-    assert all(a != b for a, b in zip(first, second))
+    for header in ('common.cuh', 'flight_post.cuh', 'domain_tally.cuh'):
+        (csrc / header).write_text((csrc / header).read_text() + '// edit\n')
+        second = paths()
+        assert all(a != b for a, b in zip(first, second)), header
+        first = second
     (csrc / 'gather_probe.cu').write_text(
         (csrc / 'gather_probe.cu').read_text() + '// edit\n')
     third = paths()
-    assert third[0] != second[0] and third[1] == second[1]
+    assert [a != b for a, b in zip(second, third)] == [False, False, True,
+                                                       False]
 
 
 # ---- the wrappers ----
