@@ -25,8 +25,9 @@ Phases (any failure raises and the exit code is non-zero):
    flight step, and its domain-mean radiance must lie within
    max(1 %, 4 sigma) of the JAX reference below; on the card every step's
    post half runs as the kernel of csrc/flight_post.cu
-   (FlightKernel.fused_steps, a count that replays keep), which is then
-   held against its plain version FlightKernel._step_post on the inputs
+   (FlightKernel.fused_post): its launches, counted in the run with graph
+   replays (FusedLaunches), and stats['fused_post_steps'] must equal the
+   steps; the kernel is then held against its plain version FlightKernel._step_post on the inputs
    of the run's own 8th step at each of its widths (2^17, 2^14 and 2^11
    lanes) at the card tests' tolerances, and timed there beside the plain
    version's captured graph and its byte bound;
@@ -52,7 +53,8 @@ Phases (any failure raises and the exit code is non-zero):
    photons x 2 runs: hr finite and >= 0, its column integral within 5 % of
    the same runs' net-flux convergence, and within max(2 %, 4 sigma) of
    the JAX reference below; on the card its domain-average tallies run as
-   the kernel of csrc/domain_tally.cu every step, which is held against
+   the kernel of csrc/domain_tally.cu every step (both kernels' launches,
+   counted as in phase 4, equal the steps), which is held against
    the dense branch of FlightKernel._step_pre, and the post half against
    its plain version, on the inputs of the first run's 8th step at each
    width, as in phase 4, and timed;
@@ -282,7 +284,8 @@ from er3t_tpu_torch.pre.cld import cld_gen_hom, cld_les, cld_sat
 from er3t_tpu_torch.pre.pha import pha_mie_wc
 from er3t_tpu_torch.probes import gather, gather_probe
 from er3t_tpu_torch.probes.gather_probe import card_line, device_ms
-from er3t_tpu_torch.rtm import mc, mc_flight, solver
+from er3t_tpu_torch.rtm import (domain_tally, flight_post, mc, mc_flight,
+                                solver)
 from er3t_tpu_torch.rtm.mc import SolverConfig
 from er3t_tpu_torch.rtm.out import (reduce_camera_radiance, reduce_flux,
                                     reduce_radiance, smooth_diffusion,
@@ -1056,6 +1059,70 @@ class StepCapture:
         mc_flight.FlightKernel.step = self.plain
 
 
+class FusedLaunches:
+    """While entered, counts the launches of the step's hand-written
+    kernels, replays included: ``launches`` {'flight_post': n,
+    'domain_tally': n}.  A launch through the module's ``_card_entry``
+    outside a capture counts once; one inside a capture of
+    mc_flight._StepGraphs counts with every replay of that graph."""
+
+    MODULES = {'flight_post': flight_post, 'domain_tally': domain_tally}
+
+    def __enter__(self):
+        self.launches = dict.fromkeys(self.MODULES, 0)
+        # where a launch counts: the run, or the capture or replay under way
+        into = [self.launches]
+
+        def counting(name, card):
+            def entry(dev):
+                launch = card(dev)
+
+                def counted(a):
+                    into[-1][name] += 1
+                    launch(a)
+                return counted
+            return entry
+        self.entries = {name: m._card_entry
+                        for name, m in self.MODULES.items()}
+        for name, card in self.entries.items():
+            self.MODULES[name]._card_entry = counting(name, card)
+        self.capture = capture = mc_flight._StepGraphs._capture
+
+        def counted_capture(graphs, fn):
+            into.append(dict.fromkeys(self.launches, 0))
+            try:
+                g, out = capture(graphs, fn)
+            finally:
+                n = into.pop()
+            return _CountedGraph(g, n, into), out
+        mc_flight._StepGraphs._capture = counted_capture
+        return self
+
+    def __exit__(self, *exc):
+        for name, card in self.entries.items():
+            self.MODULES[name]._card_entry = card
+        mc_flight._StepGraphs._capture = self.capture
+
+
+class _CountedGraph:
+    """A captured graph whose every replay adds the launches ``n`` of its
+    capture to the run's count, ``into[0]``."""
+
+    def __init__(self, g, n, into):
+        self.g, self.n, self.into = g, n, into
+
+    def replay(self):
+        # a CUDA graph's replay calls no entry; a stand-in's rerun counts
+        # nowhere
+        self.into.append(dict.fromkeys(self.n, 0))
+        try:
+            self.g.replay()
+        finally:
+            self.into.pop()
+        for name, k in self.n.items():
+            self.into[0][name] += k
+
+
 def _cloned(v):
     """A copy of a step input: a tensor, a carry of them, or a constant."""
     if isinstance(v, torch.Tensor):
@@ -1119,14 +1186,13 @@ def post_case(kern, c, u, q_off, u_split, u_imp, floor_ms):
     absorbed tallies by _close_tally (1e-5, 1e-4).  Then both timed: the
     kernel writing the static lanes, as graph ``post`` runs it; the plain
     version as its captured graph replays.  Returns its row."""
-    from er3t_tpu_torch.rtm import flight_post
     k1, mid = kern._step_pre(c, u, q_off, u_split, u_imp)
     pair = phase_pair(*k1)
     rad_f, ab_f = c.rad.clone(), c.absorbed.clone()
     base_ab = c.absorbed.double()
     mid_f = mid._replace(c=mid.c._replace(rad=rad_f, absorbed=ab_f))
     n0 = _counters(kern)
-    got = kern._step_post_fused(mid_f, *pair)
+    got = kern._post_half(mid_f, *pair)
     n1 = _counters(kern)
     ref = kern._step_post(mid, *pair)
     n2 = _counters(kern)
@@ -1184,8 +1250,8 @@ def post_case(kern, c, u, q_off, u_split, u_imp, floor_ms):
               + sum(t.numel() * t.element_size() for t in lanes.values()))
     bound_ms, bound_by = bound((nbytes, 0))
     return dict(case=f'{b}_lanes', lanes=b,
-                ms=device_ms(lambda: kern._step_post_fused(mid_f, *pair,
-                                                           out=lanes)),
+                ms=device_ms(lambda: kern._post_half(mid_f, *pair,
+                                                     out=lanes)),
                 plain_ms=device_ms(_graphed(
                     lambda: kern._step_post(mid, *pair), mid.x.device)),
                 library_ms=None, floor_ms=floor_ms, bound_ms=bound_ms,
@@ -1661,7 +1727,7 @@ def run(args, dev, phases=PHASES):
     trace.reset()
     trace.enable()
     t0 = time.perf_counter()
-    with StepCapture() as cap:
+    with StepCapture() as cap, FusedLaunches() as fused:
         tal = mc_flight.run_transport_flight(scene, st, cfg, n_ph,
                                              args.seed + 2, dev, rad_w=rad_w,
                                              stats=stats)
@@ -1700,13 +1766,15 @@ def run(args, dev, phases=PHASES):
     (kern,) = cap.kernels
     check(kern.fused_post or dev.type != 'cuda',
           'main path: the post half is not fused on the card')
-    check(cap.n_steps == [steps] and stats['fused_post_steps']
-          == kern.fused_steps == (steps if kern.fused_post else 0),
-          f'main path: {stats["fused_post_steps"]} fused post halves in '
-          f'{steps} steps')
+    n_post = steps if kern.fused_post else 0
+    check(cap.n_steps == [steps] and fused.launches
+          == {'flight_post': n_post, 'domain_tally': 0}
+          and stats['fused_post_steps'] == n_post,
+          f'main path: launches {fused.launches} and '
+          f'{stats["fused_post_steps"]} fused post halves in {steps} steps')
     if kern.fused_post:
         report['fused']['flight_post'] = dict(
-            launches=kern.fused_steps, rows=fused_cases(
+            launches=fused.launches['flight_post'], rows=fused_cases(
                 'flight_post', cap, post_case, floor_ms))
     del cap, kern
 
@@ -2006,7 +2074,7 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, floor_ms, report):
 
     reset_counts()
     t0 = time.perf_counter()
-    with StepCapture() as cap:
+    with StepCapture() as cap, FusedLaunches() as fused:
         res = solve(atm=atm, abs_coef=ab, **scene_kw, target='heating_rate',
                     photons=HR_PHOTONS, n_run=2, batch=BATCH, tile_size=16,
                     qmc_launch=True, n_scat_max=600, seed=args.seed + 6,
@@ -2037,18 +2105,17 @@ def flux_phase(args, dev, atm, ab, scene_kw, scene, st, floor_ms, report):
     on = cap.kernels[0].fused_tally
     check(on or dev.type != 'cuda',
           'heating rate: the tallies are not fused on the card')
+    n = sum(cap.n_steps) if on else 0
     check(all(k.fused_tally == k.fused_post == on for k in cap.kernels)
-          and [k.fused_steps for k in cap.kernels]
-          == [n if on else 0 for n in cap.n_steps],
-          f'heating rate: {[k.fused_steps for k in cap.kernels]} fused '
-          f'steps in {cap.n_steps}')
+          and fused.launches == {'flight_post': n, 'domain_tally': n},
+          f'heating rate: launches {fused.launches} in {cap.n_steps} steps')
     if on:
         post = report['fused'].setdefault('flight_post', {})
         post['hr_rows'] = fused_cases('flight_post, heating rate', cap,
                                       post_case, floor_ms)
-        post['hr_launches'] = sum(cap.n_steps)
+        post['hr_launches'] = fused.launches['flight_post']
         report['fused']['domain_tally'] = dict(
-            launches=sum(cap.n_steps), rows=fused_cases(
+            launches=fused.launches['domain_tally'], rows=fused_cases(
                 'domain_tally', cap, tally_case, floor_ms))
 
 
@@ -3465,13 +3532,13 @@ def profile_steps(scene, st, cfg, dev, rad_w=None, flux_w=None):
     gen.manual_seed(5)
     c = kern.carry0(cfg.batch)
     for _ in range(30):
-        c = kern.step(c, mc_flight.draw_deviates(gen, cfg.batch, dev), 0)
+        c = mc_flight.flight_step(kern, gen, c, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(20):
-            c = kern.step(c, mc_flight.draw_deviates(gen, cfg.batch, dev), 0)
+            c = mc_flight.flight_step(kern, gen, c, 0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []

@@ -25,15 +25,14 @@ import time
 
 import torch
 
-from ..rtm.mc import SolverConfig, Tallies, draw_deviates, resolve_device
-from ..rtm.mc_flight import (FlightKernel, SlabSpec, lane_matrix,
-                             lanes_from_matrix, _f32)
+from ..rtm.mc import SolverConfig, Tallies, resolve_device
+from ..rtm.mc_flight import (FlightKernel, SlabSpec, column_flux, flight_step,
+                             lane_matrix, lanes_from_matrix, _f32)
 from ..rtm.scene import SceneArrays, SceneStatic
 from .mesh import Mesh, rank_seed
 from .photon import scene_on
 
-__all__ = ['transport_decomp', 'shard_scene', 'migrate_dir', 'rank_kernels',
-           'rank_step']
+__all__ = ['transport_decomp', 'shard_scene', 'migrate_dir', 'rank_kernels']
 
 _F = torch.float32
 _SHARDED = ('ext3d', 'ssa3d', 'apf3d', 'cf3d')
@@ -133,9 +132,10 @@ def rank_kernels(scene, st, cfg: SolverConfig, mesh: Mesh, n_per: int,
                  seed: int, flux_w=None, rad_w=None, spawn_reserve: int = 0):
     """The flight kernels of the local ranks of a decomposed run: for each,
     (its kernel on its slab of ``scene`` with ``n_per`` photons, its
-    generator seeded ``rank_seed(seed, r)``, its stratified-launch offset,
-    its device).  :func:`transport_decomp` runs them; so does a script
-    that steps the ranks by hand (scripts/debug_decomp_drain_torch.py)."""
+    generator seeded ``rank_seed(seed, r)``, its stratified-launch
+    offset), which :func:`~..rtm.mc_flight.flight_step` steps.
+    :func:`transport_decomp` runs them; so does a script that steps the
+    ranks by hand (scripts/debug_decomp_drain_torch.py)."""
     n_dev = mesh.shape['x']
     nx_loc = st.nx // n_dev
     slab = SlabSpec(nx_global=st.nx, nx_local=nx_loc)
@@ -154,18 +154,8 @@ def rank_kernels(scene, st, cfg: SolverConfig, mesh: Mesh, n_per: int,
         gen.manual_seed(rank_seed(seed, r))
         q_off = (torch.randint(0, kern.n_cell, (), generator=gen, device=dev)
                  if kern.strat else 0)
-        ranks.append((kern, gen, q_off, dev))
+        ranks.append((kern, gen, q_off))
     return ranks
-
-
-def rank_step(cfg: SolverConfig, c, kern, gen, q_off, dev):
-    """One flight step of a rank's carry ``c`` (a rank of
-    :func:`rank_kernels`), its deviates drawn from its generator."""
-    kw = {}
-    u = draw_deviates(gen, cfg.batch, dev)
-    if cfg.split_wmax > 0:
-        kw['u_split'] = draw_deviates(gen, cfg.batch, dev, rows=1)[0]
-    return kern.step(c, u, q_off, **kw)
 
 
 def _sync(mesh):
@@ -228,9 +218,9 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int,
     while rounds < max_rounds and mesh.any(
             [c.alive.any() | (c.launched < n_per) for c in cs]):
         t0 = time.perf_counter()
-        for k, rk in enumerate(ranks):
+        for k, (kern, gen, q_off) in enumerate(ranks):
             for _ in range(k_super):
-                cs[k] = rank_step(cfg, cs[k], *rk)
+                cs[k] = flight_step(kern, gen, cs[k], q_off)
         if stats is not None:
             _sync(mesh)
         t1 = time.perf_counter()
@@ -260,10 +250,7 @@ def transport_decomp(scene, st, cfg: SolverConfig, n_photon: int,
         parts = []
         for (kern, *_), c, r in zip(ranks, cs, mesh.local_ranks):
             i = mesh.coords(r)[0]
-            f = c.flux.reshape(nx_loc, st.ny, nlev, 3, -1)
-            toa1 = torch.sum(kern.flux_w[st.nz]) if kern.scalar_flux else 1.0
-            f[:, :, st.nz, 0, :] += (c.launched.to(_F) * toa1
-                                     / (nx_loc * st.ny))
+            f = column_flux(kern, c)
             g = torch.zeros((st.nx,) + f.shape[1:], dtype=_F, device=f.device)
             g[i * nx_loc:(i + 1) * nx_loc] = f
             parts.append(g)

@@ -11,9 +11,10 @@ differs is the execution shape:
 * :meth:`FlightKernel.step` is one loop body as a plain function of
   ``(carry, u, q_off)`` and, where an option needs them, the deviates of
   the reference's two extra substreams (``u_split``, ``u_imp``): it draws
-  nothing itself.  The loop draws every deviate with an explicit
-  ``torch.Generator``; the tests inject JAX's own deviates and step both
-  packages from one carry.
+  nothing itself.  :func:`flight_step` draws a step's deviates from an
+  explicit ``torch.Generator`` and steps; every loop steps through it (the
+  flight, the decomposed ranks).  The tests inject JAX's own deviates
+  into :meth:`FlightKernel.step` and step both packages from one carry.
 * the loop runs in Python; its condition reads two numbers back from the
   device once per step, or once per block of ``sort_every`` steps (the
   cost is recorded in PERF.md).  On the card the step's kernels are not
@@ -74,8 +75,9 @@ from .brdf import brdf_eval, brdf_sample_dir_weight
 from .scene import SceneArrays, SceneStatic, camera_rotation
 
 __all__ = ['FlightCarry', 'FlightKernel', 'SlabSpec', 'transport_flight',
-           'run_transport_flight', 'draw_deviates', 'lane_matrix',
-           'lanes_from_matrix', 'OUTCOMES', 'SFC_BRANCHES']
+           'run_transport_flight', 'flight_step', 'column_flux',
+           'draw_deviates', 'lane_matrix', 'lanes_from_matrix', 'OUTCOMES',
+           'SFC_BRANCHES']
 
 # the classes of an active lane iteration (transport_flight's counters)
 OUTCOMES = ('real', 'null', 'surface', 'toa', 'stopped')
@@ -188,6 +190,14 @@ class _Mid(NamedTuple):
     cam: tuple | None        # the camera's (r_cam, wsx_c, wsy_c, wsz_c)
 
 
+def _copied(dst, src):
+    """The tensors of ``src`` copied into those of ``dst``, in order;
+    returns ``dst``."""
+    for t, v in zip(dst, src):
+        t.copy_(v)
+    return dst
+
+
 def _take_lanes(c: FlightCarry, idx: torch.Tensor) -> FlightCarry:
     """The lanes ``idx`` of every per-lane field (``labs`` along dim 1)."""
     return c._replace(**{f: (getattr(c, f)[:, idx] if f == 'labs'
@@ -290,7 +300,7 @@ class FlightKernel:
     pathlength, pinned column, slab or deposit ablation), every step runs
     its post half as the kernel of ``csrc/flight_post.cu``
     (:func:`.flight_post.fused_post`), eagerly and in the replayed graphs
-    alike; ``fused_steps`` counts those steps.  Elsewhere the post half is
+    alike (:meth:`_post_half`).  Elsewhere the post half is
     :meth:`_step_post`, the kernel's plain version.  ``fused_tally``: where
     ``fused_post`` holds, a domain-average flux run without collision
     forcing (the heating rate) also adds its level-crossing and absorbed
@@ -475,7 +485,6 @@ class FlightKernel:
         self.fused_post = dev.type == 'cuda' and post_applies(self)
         self.fused_tally = (self.fused_post and self.tally_absorbed
                             and cfg.cf_dtau <= 0)
-        self.fused_steps = 0
         if self.fused_post:
             from .._build import load_together
             load_together('phase_pair', 'flight_post', 'domain_tally')
@@ -624,7 +633,8 @@ class FlightKernel:
     def step(self, c: FlightCarry, u: torch.Tensor, q_off, u_split=None,
              u_imp=None) -> FlightCarry:
         """One loop body (reference :376-1278) for ``B = c.x.shape[0]``
-        lanes: :meth:`_step_pre`, the phase-pair kernel, :meth:`_step_post`.
+        lanes: :meth:`_step_pre`, the phase-pair kernel (:meth:`_pair`),
+        :meth:`_post_half`.
 
         ``u``: (14, B) f32 deviates in [1e-7, 1-1e-7]; ``q_off``: the
         stratified-launch cell offset (int or 0-d integer tensor);
@@ -645,27 +655,39 @@ class FlightKernel:
         and ``launched`` are then the graphs' own buffers, which the next
         step at that width overwrites.
         """
-        if self.fused_post:
-            self.fused_steps += 1
-        g = None
         if self.graphs is not None:
-            b = c.x.shape[0]
-            g = self.graphs.get(b)
-            if g is None:
-                self.graphs[b] = _StepGraphs(self, c, u, u_split, u_imp)
-                self.graph_stats['eager_steps'] += 1
-        if g is not None:
-            return g.run(c, u, q_off, u_split, u_imp)
+            g = self.graphs.get(c.x.shape[0])
+            if g is not None:
+                return g.run(c, u, q_off, u_split, u_imp)
+            self.graphs[c.x.shape[0]] = _StepGraphs(self, c, u, u_split, u_imp)
+            self.graph_stats['eager_steps'] += 1
         k1, mid = self._step_pre(c, u, q_off, u_split, u_imp)
-        post = self._step_post_fused if self.fused_post else self._step_post
-        return post(mid, *(k1 if 'phase' in self.ablate else phase_pair(*k1)))
+        return self._post_half(mid, *self._pair(k1))
 
-    def deviate_buffers(self, b: int) -> dict:
-        """The buffers from which the replayed step at batch width ``b``
-        reads its deviates (``'u'``, ``'u_split'`` as (1, B), ``'u_imp'``),
-        for the caller to draw into; empty where that width has none."""
-        g = self.graphs.get(b) if self.graphs is not None else None
-        return g.inputs if g is not None else {}
+    def _pair(self, k1, out=None):
+        """K1's pair: ``phase_pair(*k1)`` (this module's, looked up at the
+        call), copied into ``out`` where given; under the ``'phase'``
+        ablation ``k1`` itself, the stand-in pair of :meth:`_step_pre`."""
+        if 'phase' in self.ablate:
+            return k1
+        pair = phase_pair(*k1)
+        return pair if out is None else _copied(out, pair)
+
+    def _post_half(self, mid: _Mid, pe_pair, mu_new,
+                   out: dict | None = None) -> FlightCarry:
+        """The step from K1's pair on: the kernel of ``csrc/flight_post.cu``
+        where ``fused_post`` holds, else :meth:`_step_post`; the new lanes
+        written into ``out`` (a replayed step's static lanes) where given."""
+        if self.fused_post:
+            trace.phase('step.post')
+            c = fused_post(self, mid, pe_pair, mu_new, out=out)
+            trace.phase(None)
+            return c
+        c = self._step_post(mid, pe_pair, mu_new)
+        if out is None:
+            return c
+        _copied(out.values(), [getattr(c, f) for f in out])
+        return c._replace(**out)
 
     def _step_pre(self, c: FlightCarry, u: torch.Tensor, q_off, u_split=None,
                   u_imp=None):
@@ -1333,16 +1355,6 @@ class FlightKernel:
                            launched=launched, step=c.step + 1, rad=rad,
                            rad_pl=rad_pl, flux=flux, absorbed=absorbed)
 
-    def _step_post_fused(self, mid: _Mid, pe_pair, mu_new,
-                         out: dict | None = None) -> FlightCarry:
-        """:meth:`_step_post` as one kernel launch (``fused_post``);
-        ``out``: the lanes to write, as :func:`.flight_post.fused_post`
-        takes them."""
-        trace.phase('step.post')
-        c = fused_post(self, mid, pe_pair, mu_new, out=out)
-        trace.phase(None)
-        return c
-
     def _camera_estimate(self, l_col, vt, z_hi_col, z, tau3_above, labs,
                          tau_sens_abs, tau_sens_sig, wsc, ssa_ev, pval,
                          r_cam, wsx_c, wsy_c, wsz_c, jsfc_l, psfc_l, ux, uy,
@@ -1404,21 +1416,20 @@ class _StepGraphs:
     Issued one by one from Python, the step's ~600-720 small kernels keep
     the card idle most of the step.  Graph ``pre`` is
     :meth:`FlightKernel._step_pre` on static lanes and deviates; the
-    phase-pair kernel (K1) is then launched eagerly on its outputs, through
-    this module's ``phase_pair`` as in the eager step, and its results are
-    copied to where graph ``post`` reads them; ``post`` is
-    :meth:`FlightKernel._step_post` and ends by copying the new lanes into
-    the static lanes, so the carry it leaves is the next step's input.
-    Where the kernel's ``fused_post`` holds, ``post`` is the one launch of
-    :meth:`FlightKernel._step_post_fused`, which writes the new lanes into
-    the static lanes itself.
-    Under the ``'phase'`` ablation ``post`` reads ``pre``'s stand-in pair.
+    phase-pair kernel (K1) is then launched eagerly on its outputs by
+    :meth:`FlightKernel._pair`, as in the eager step, which copies its
+    results to where graph ``post`` reads them (under the ``'phase'``
+    ablation ``post`` reads ``pre``'s stand-in pair); ``post`` is
+    :meth:`FlightKernel._post_half` writing the new lanes into the static
+    lanes, so the carry it leaves is the next step's input.
 
     The tallies, the outcome counts and ``q_off`` are captured where they
-    lie; a carry that holds them elsewhere is captured anew.  Lanes and
-    deviates handed in from elsewhere (the first replayed step, after a
-    drain compaction or a lane sort) are copied in first.  Both graphs of
-    a capture share one private memory pool, freed with them."""
+    lie; a carry that holds them elsewhere is captured anew: ``pre``
+    before its first replay, ``post`` after K1's launch, on the pair that
+    launch leaves.  Lanes and deviates handed in from elsewhere (the first
+    replayed step, after a drain compaction or a lane sort) are copied in
+    first.  Both graphs of a capture share one private memory pool, freed
+    with them."""
 
     def __init__(self, kern: FlightKernel, c: FlightCarry, u, u_split,
                  u_imp):
@@ -1449,40 +1460,27 @@ class _StepGraphs:
         key = tuple(t.data_ptr() if isinstance(t, torch.Tensor) else t
                     for t in (c.rad, c.rad_pl, c.flux, c.absorbed,
                               kern.outcome, q_off))
-        if key != self.key:
-            self._capture_halves(c, q_off)
-            self.key = key
+        fresh = key != self.key
+        if fresh:
+            inp = self.inputs
+            carry = c._replace(**self.lanes)
+            u_split = inp['u_split'][0] if 'u_split' in inp else None
+            self.key, self.pool = key, None
+            self.tallies = (c.rad, c.rad_pl, c.flux, c.absorbed)
+            with trace.span('flight.graph.capture'):
+                self.pre, (self.k1, self.mid) = self._capture(
+                    lambda: kern._step_pre(carry, inp['u'], q_off, u_split,
+                                           inp.get('u_imp')))
         self.pre.replay()
-        if 'phase' not in kern.ablate:
-            for t, v in zip(self.pair, phase_pair(*self.k1)):
-                t.copy_(v)
+        pair = kern._pair(self.k1, out=self.pair)
+        if fresh:
+            with trace.span('flight.graph.capture'):
+                self.post, _ = self._capture(
+                    lambda: kern._post_half(self.mid, *pair, out=self.lanes))
+            kern.graph_stats['captures'] += 2
         self.post.replay()
         kern.graph_stats['replays'] += 1
         return c._replace(step=c.step + 1, **self.lanes)
-
-    def _capture_halves(self, c: FlightCarry, q_off):
-        kern, inp = self.kern, self.inputs
-        carry = c._replace(**self.lanes)
-        self.tallies = (c.rad, c.rad_pl, c.flux, c.absorbed)
-        u_split = inp['u_split'][0] if 'u_split' in inp else None
-        self.pool = None
-
-        def post():
-            pair = self.k1 if 'phase' in kern.ablate else self.pair
-            if kern.fused_post:
-                kern._step_post_fused(self.mid, *pair, out=self.lanes)
-                return
-            out = kern._step_post(self.mid, *pair)
-            for f, t in self.lanes.items():
-                t.copy_(getattr(out, f))
-
-        with trace.span('flight.graph.capture'):
-            self.pre, (self.k1, self.mid) = self._capture(
-                lambda: kern._step_pre(carry, inp['u'], q_off, u_split,
-                                       inp.get('u_imp')))
-        with trace.span('flight.graph.capture'):
-            self.post, _ = self._capture(post)
-        kern.graph_stats['captures'] += 2
 
     def _capture(self, fn):
         """``fn()`` recorded, not run, as a CUDA graph in this width's
@@ -1500,6 +1498,42 @@ class _StepGraphs:
                 g.capture_end()
         self.pool = g.pool()
         return g, out
+
+
+def flight_step(kern: FlightKernel, gen: torch.Generator, c: FlightCarry,
+                q_off) -> FlightCarry:
+    """One :meth:`FlightKernel.step` of the lanes of ``c``, its deviates
+    drawn from ``gen`` (into the graphs' buffers where their width
+    replays): ``u``, ``u_split`` with ``split_wmax`` > 0, ``u_imp`` with
+    the camera-importance launch; the spans ``flight.deviates`` and
+    ``flight.step``."""
+    b = c.x.shape[0]
+    g = kern.graphs.get(b) if kern.graphs is not None else None
+    buf = g.inputs if g is not None else {}
+    with trace.span('flight.deviates'):
+        kw = {}
+        u = draw_deviates(gen, b, kern.device, out=buf.get('u'))
+        if kern.cfg.split_wmax > 0:
+            kw['u_split'] = draw_deviates(gen, b, kern.device, rows=1,
+                                          out=buf.get('u_split'))[0]
+        if kern.cam_importance:
+            kw['u_imp'] = draw_deviates(gen, b, kern.device, rows=3,
+                                        out=buf.get('u_imp'))
+    with trace.span('flight.step'):
+        return kern.step(c, u, q_off, **kw)
+
+
+def column_flux(kern: FlightKernel, c: FlightCarry) -> torch.Tensor:
+    """The flux tally of ``c`` unpacked as (Nxf, Nyf, Nz+1, 3, Ng) (Ng -> 1
+    with the in-step contraction), with the deterministic TOA down-direct
+    entry added in f32: exactly 1 per launched photon (factor-contracted
+    with ``flux_w``), spread over the columns (reference :1483-1497)."""
+    nz = kern.st.nz
+    flux = c.flux.reshape(kern.nxf, kern.nyf, nz + 1, 3, -1)
+    toa1 = torch.sum(kern.flux_w[nz]) if kern.scalar_flux else 1.0
+    flux[:, :, nz, 0, :] += (c.launched.to(_F) * toa1
+                             / (kern.nxf * kern.nyf))
+    return flux
 
 
 def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
@@ -1525,33 +1559,31 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
     live lanes are those alive before it and those it launches, from the
     two numbers read back), ``graph_steps``, the steps replayed from
     captured CUDA graphs, and ``fused_post_steps``, the steps whose post
-    half ran as one kernel (``FlightKernel.fused_post``).  On the card the
-    step replays: the first step at each batch width runs eagerly, every
-    later one replays that width's two graphs (:meth:`FlightKernel.step`),
-    into whose buffers the loop draws the deviates; the graphs and their
-    memory are freed before the
-    flight returns.  Traced (:mod:`er3t_tpu_torch.util.trace`),
-    the loop records the spans ``flight.deviates``, ``flight.step``,
-    ``flight.read`` and ``flight.compact`` (and ``flight.graph.capture``
-    around each graph's capture), those counts as the counters
-    ``flight.lane_slots`` and ``flight.idle_lanes``, the graphs captured,
-    the steps replayed and the steps run eagerly while replaying as
-    ``flight.graph.captures``, ``flight.graph.replays`` and
-    ``flight.graph.eager_steps``, the fused post halves as
-    ``flight.post.fused_steps``, and the classes of
-    every active lane iteration (:data:`OUTCOMES`, counted on the device
-    and read once at the end) as ``flight.iter_outcome.<class>`` and in
+    half ran as one kernel: all of them where ``FlightKernel.fused_post``
+    holds, else none.  On the card the step replays: the first step at
+    each batch width runs eagerly, every later one replays that width's
+    two graphs (:meth:`FlightKernel.step`), into whose buffers
+    :func:`flight_step` draws the deviates; the graphs and their memory
+    are freed before the flight returns.  Traced
+    (:mod:`er3t_tpu_torch.util.trace`), the loop records the spans
+    ``flight.deviates``, ``flight.step``, ``flight.read`` and
+    ``flight.compact`` (and ``flight.graph.capture`` around each graph's
+    capture), those counts as the counters ``flight.lane_slots`` and
+    ``flight.idle_lanes``, the graphs captured, the steps replayed and the
+    steps run eagerly while replaying as ``flight.graph.captures``,
+    ``flight.graph.replays`` and ``flight.graph.eager_steps``, the fused
+    post halves as ``flight.post.fused_steps``, and the classes of every
+    active lane iteration (:data:`OUTCOMES`, counted on the device and
+    read once at the end) as ``flight.iter_outcome.<class>`` and in
     ``stats['iter_outcome']``.  Traced or given ``stats``, a flight over a
     surface other than Lambertian counts its surface hits by Cox-Munk
     branch (``stats['sfc_branch']``, {branch: hits}, the counters
     ``flight.sfc.<branch>``), and one with tile clamps its ``active`` lane
     iterations and those ``clamped`` at a tile face
     (``stats['tile_stops']``, the counter ``flight.tile_clamps``), read
-    back with the outcome counts.  Flux tallies come back unpacked as (Nxf,
-    Nyf, Nz+1, 3, Ng) (Ng -> 1 with the in-step contraction) with the
-    deterministic TOA down-direct entry added (reference :1483-1497);
-    ``rad_plen`` is the (Nxr, Nyr, Ng) pathlength-weighted image with
-    ``cfg.pathlength``.
+    back with the outcome counts.  Flux tallies come back as
+    :func:`column_flux` unpacks them; ``rad_plen`` is the (Nxr, Nyr, Ng)
+    pathlength-weighted image with ``cfg.pathlength``.
     """
     kern = FlightKernel(scene, st, cfg, n_photon, rad_w=rad_w, flux_w=flux_w)
     dev = kern.device
@@ -1581,18 +1613,7 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
         if lanes is not None:
             lanes[0] += b
             lanes[1] += b - n_alive - min(b - n_alive, n - launched)
-        with trace.span('flight.deviates'):
-            kw = {}
-            buf = kern.deviate_buffers(b)
-            u = draw_deviates(gen, b, dev, out=buf.get('u'))
-            if cfg.split_wmax > 0:
-                kw['u_split'] = draw_deviates(
-                    gen, b, dev, rows=1, out=buf.get('u_split'))[0]
-            if kern.cam_importance:
-                kw['u_imp'] = draw_deviates(gen, b, dev, rows=3,
-                                            out=buf.get('u_imp'))
-        with trace.span('flight.step'):
-            return kern.step(c, u, q_off, **kw)
+        return flight_step(kern, gen, c, q_off)
 
     if dev.type == 'cuda':
         # replay the step's kernels as captured graphs (FlightKernel.step)
@@ -1637,53 +1658,42 @@ def transport_flight(scene: SceneArrays, st: SceneStatic, cfg: SolverConfig,
             kern.graphs.clear()
             torch.cuda.empty_cache()
 
-    if lanes is not None:
-        trace.count('flight.lane_slots', lanes[0])
-        trace.count('flight.idle_lanes', lanes[1])
     for k, v in kern.graph_stats.items():
         trace.count('flight.graph.' + k, v)
-    trace.count('flight.post.fused_steps', kern.fused_steps)
+    if stats is not None:
+        stats.update(stage_steps=stage_steps, max_steps=max_steps,
+                     in_flight=read_counts(c, dev)[0],
+                     graph_steps=kern.graph_stats['replays'])
+    # the counts that go to both: (stats key, value, its counters)
+    fused = c.step if kern.fused_post else 0
+    counts = [('fused_post_steps', fused, {'flight.post.fused_steps': fused})]
+    if lanes is not None:
+        counts += [(k, v, {'flight.' + k: v})
+                   for k, v in zip(('lane_slots', 'idle_lanes'), lanes)]
     # the device's counters, read back once
-    outcome = branch = tiles = None
     ctrs = [t for t in (kern.outcome, kern.sfc_branch, kern.tile_stops)
             if t is not None]
     vals = iter(torch.cat(ctrs).tolist() if ctrs else ())
     if kern.outcome is not None:
-        real, tentative, *rest = (next(vals) for _ in OUTCOMES)
-        outcome = dict(zip(OUTCOMES, [real, tentative - real, *rest]))
-        for k, v in outcome.items():
-            trace.count('flight.iter_outcome.' + k, v)
+        v = {k: next(vals) for k in OUTCOMES}
+        v['null'] -= v['real']              # counted as tentative
+        counts.append(('iter_outcome', v, {'flight.iter_outcome.' + k: n
+                                           for k, n in v.items()}))
     if kern.sfc_branch is not None:
-        branch = {k: next(vals) for k in SFC_BRANCHES}
-        for k, v in branch.items():
-            trace.count('flight.sfc.' + k, v)
+        v = {k: next(vals) for k in SFC_BRANCHES}
+        counts.append(('sfc_branch', v,
+                       {'flight.sfc.' + k: n for k, n in v.items()}))
     if kern.tile_stops is not None:
-        tiles = {k: next(vals) for k in ('active', 'clamped')}
-        trace.count('flight.tile_clamps', tiles['clamped'])
-    if stats is not None:
-        in_flight = read_counts(c, dev)[0]
-        stats.update(stage_steps=stage_steps, max_steps=max_steps,
-                     in_flight=in_flight,
-                     graph_steps=kern.graph_stats['replays'],
-                     fused_post_steps=kern.fused_steps)
-        if lanes is not None:
-            stats.update(lane_slots=lanes[0], idle_lanes=lanes[1])
-        if outcome is not None:
-            stats['iter_outcome'] = outcome
-        if branch is not None:
-            stats['sfc_branch'] = branch
-        if tiles is not None:
-            stats['tile_stops'] = tiles
+        v = {k: next(vals) for k in ('active', 'clamped')}
+        counts.append(('tile_stops', v, {'flight.tile_clamps': v['clamped']}))
+    for key, v, names in counts:
+        for name, n in names.items():
+            trace.count(name, n)
+        if stats is not None:
+            stats[key] = v
     ng_r = 1 if kern.scalar_rad else st.ng
-    if kern.radiance:
-        flux = torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev)
-    else:
-        flux = c.flux.reshape(kern.nxf, kern.nyf, st.nz + 1, 3, -1)
-        # deterministic TOA down-direct entry: exactly 1 per launched
-        # photon (factor-contracted with flux_w), in f32
-        toa1 = torch.sum(kern.flux_w[st.nz]) if kern.scalar_flux else 1.0
-        flux[:, :, st.nz, 0, :] += (c.launched.to(_F) * toa1
-                                    / (kern.nxf * kern.nyf))
+    flux = (torch.zeros((1, 1, st.nz + 1, 3, st.ng), dtype=_F, device=dev)
+            if kern.radiance else column_flux(kern, c))
     rad_plen = (c.rad_pl.reshape(kern.nxr, kern.nyr, st.ng) if cfg.pathlength
                 else torch.zeros((), dtype=_F, device=dev))
     return Tallies(

@@ -11,7 +11,7 @@ first 5 rounds and every 10th), every live lane at rounds 80, 100 and 120
 It keeps no copy of the dist layer: the ranks are
 ``dist.decomp.rank_kernels`` (each rank's FlightKernel on its
 ``shard_scene`` slab with its x offset and spawn reserve, its generator
-and launch offset), a step is ``dist.decomp.rank_step``, and the swaps
+and launch offset), a step is ``rtm.mc_flight.flight_step``, and the swaps
 are ``dist.decomp.migrate_dir`` itself, with transport_decomp's window
 (B / 4), spawn reserve (min(window / 2, B / 8)), roaming rule and deck
 top.  Defaults as the source's: 4 ranks, 4e4 photons, the 96 x 96 scene
@@ -53,6 +53,7 @@ def main():
     from er3t_tpu_torch.dist import decomp as D
     from er3t_tpu_torch.dist.mesh import make_mesh
     from er3t_tpu_torch.rtm.mc import SolverConfig
+    from er3t_tpu_torch.rtm.mc_flight import flight_step
     from er3t_tpu_torch.rtm.out import spectral_factors
 
     n_dev = args.n_dev
@@ -74,9 +75,9 @@ def main():
 
     rows_out, drained = [], None
     for r in range(MAX_ROUNDS):
-        for k, rk in enumerate(ranks):
+        for k, (kern, gen, q_off) in enumerate(ranks):
             for _ in range(K_SUPER):
-                cs[k] = D.rank_step(cfg, cs[k], *rk)
+                cs[k] = flight_step(kern, gen, cs[k], q_off)
         for right in (True, False):
             cs = D.migrate_dir(mesh, cs, M, lx_loc, zd_top, roam, right)
         if r % 10 == 0 or r < 5:

@@ -319,8 +319,10 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
     step and two captures per batch width, and the graphs' memory freed
     when the flight returns.  The radiance (rad_w), flux, heating-rate and
     ocean modes run the post half as the fused kernel, eagerly and in
-    graph ``post`` alike (every step counted in ``fused_post_steps``, the
-    ocean's surface branches equal); the camera and IPA modes keep the
+    graph ``post`` alike (its launches, counted with the graphs' replays
+    by chip_smoke.FusedLaunches, once a step, as ``fused_post_steps``;
+    the ocean's surface branches equal), and the heating rate its tallies
+    as the tally kernel once a step; the camera and IPA modes keep the
     plain post half in the graphs."""
     atm, ab, kw = _broken_inputs()
     if not _MIE:
@@ -348,14 +350,16 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
         trace.reset()
         trace.enable()
         try:
-            tal = mc_flight.transport_flight(scene, st, cfg, 100000, gen,
-                                             stats=stats, **extra)
+            with chip_smoke.FusedLaunches() as fused_launches:
+                tal = mc_flight.transport_flight(scene, st, cfg, 100000, gen,
+                                                 stats=stats, **extra)
             torch.cuda.synchronize()
             ctr = trace.report()['counters']
         finally:
             trace.enable(False)
             trace.reset()
-        return tal, stats, ctr, phase_pair.launches - k1
+        return (tal, stats, ctr, phase_pair.launches - k1,
+                fused_launches.launches)
 
     step = mc_flight.FlightKernel.step
 
@@ -365,13 +369,13 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
 
     with monkeypatch.context() as m:
         m.setattr(mc_flight.FlightKernel, 'step', eager_step)
-        ref, ref_stats, ref_ctr, ref_k1 = flight()
+        ref, ref_stats, ref_ctr, ref_k1, ref_fused = flight()
     assert ref_stats['graph_steps'] == 0 == ref_ctr['flight.graph.captures']
     # twice: the first graphed flight of a process also leaves the capture
     # stream's cuBLAS workspace (32 MiB), as a first matmul on any stream
     for k in range(2):
         base = torch.cuda.memory_allocated()
-        got, stats, ctr, k1 = flight()
+        got, stats, ctr, k1, n_fused = flight()
         grown = torch.cuda.memory_allocated() - base
         steps = int(got.n_steps)
         assert len(stats['stage_steps']) == 3
@@ -380,8 +384,11 @@ def test_graph_replay_matches_eager_on_the_card(cuda, mode, monkeypatch):
         assert stats['iter_outcome'] == ref_stats['iter_outcome']
         assert stats.get('sfc_branch') == ref_stats.get('sfc_branch')
         assert steps == int(ref.n_steps) == sum(stats['stage_steps'])
+        launches = {'flight_post': steps if fused else 0,
+                    'domain_tally': steps if mode == 'heating_rate' else 0}
+        assert n_fused == ref_fused == launches
         assert stats['fused_post_steps'] == ref_stats['fused_post_steps'] \
-            == (steps if fused else 0) == ctr['flight.post.fused_steps']
+            == launches['flight_post'] == ctr['flight.post.fused_steps']
         assert int(got.n_launched) == int(ref.n_launched) == 100000
         assert float(got.lane_iters) == float(ref.lane_iters)
         assert k1 == ref_k1 == steps
@@ -485,7 +492,7 @@ def test_fused_post_kernel_matches_the_plain_post_half_on_the_card(
         rad_f.copy_(c.rad)
         ab_f.copy_(c.absorbed)
         mid_f = mid._replace(c=mid.c._replace(rad=rad_f, absorbed=ab_f))
-        got = kf._step_post_fused(mid_f, *pair)
+        got = kf._post_half(mid_f, *pair)
         assert launches[0] == k + 1
         ref = kp._step_post(mid, *pair)
         torch.cuda.synchronize()

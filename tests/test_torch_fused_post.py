@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from er3t_tpu_torch.pre.abs import abs_synthetic
 from er3t_tpu_torch.pre.atm import atm_atmmod
 from er3t_tpu_torch.pre.cld import cld_gen_hem
@@ -241,12 +242,15 @@ def test_replayed_fused_flight_equals_the_eager_fused_flight(
     domain-average tallies) fused, stepped eagerly and replayed through the
     step-halves tests' stand-in capture (graph ``post`` is the one launch,
     writing the static lanes itself): the same flight bit for bit, every
-    step counted as fused."""
+    step counted as fused, and the kernels' launches, counted with the
+    replays (chip_smoke.FusedLaunches), once a step (the tally kernel's
+    in the heating rate alone)."""
     eager_stats, stats = {}, {}
     trace.reset()
     trace.enable()
     try:
-        eager = halves.flight(case, eager_stats)
+        with chip_smoke.FusedLaunches() as eager_n:
+            eager = halves.flight(case, eager_stats)
         eager_ctr = trace.report()['counters']
         trace.reset()
         step = mc_flight.FlightKernel.step
@@ -258,12 +262,16 @@ def test_replayed_fused_flight_equals_the_eager_fused_flight(
         monkeypatch.setattr(mc_flight.FlightKernel, 'step', replayed_step)
         monkeypatch.setattr(mc_flight._StepGraphs, '_capture',
                             halves.rerun_capture)
-        got = halves.flight(case, stats)
+        with chip_smoke.FusedLaunches() as n:
+            got = halves.flight(case, stats)
         ctr = trace.report()['counters']
     finally:
         trace.enable(False)
         trace.reset()
     steps = sum(eager_stats['stage_steps'])
+    launches = {'flight_post': steps,
+                'domain_tally': steps if case == 'heating_rate' else 0}
+    assert eager_n.launches == n.launches == launches
     assert eager_stats['fused_post_steps'] == steps == \
         eager_ctr['flight.post.fused_steps']
     assert eager_stats['graph_steps'] == 0
@@ -320,7 +328,10 @@ def test_cpu_kernels_never_fuse():
     for case in ('radiance_mie_rad_w', 'flux_kx4_flux_w', 'heating_rate'):
         k = halves.kernel(case)
         assert flight_post.applies(k) and k.fused_post is False
-        assert k.fused_tally is False and k.fused_steps == 0
+        assert k.fused_tally is False
+        stats = {}
+        halves.flight(case, stats, photons=1500)
+        assert stats['fused_post_steps'] == 0
 
 
 REFUSED = {

@@ -18,10 +18,17 @@ replay of the two halves as captured graphs, on the CPU.
   it again at each replay, writing its results where the first run put
   them (what a replayed graph does), a flight must equal the eager flight
   bit for bit, with one eager step and two captures per batch width.
+* Whole flights against the flights as they stood before the step's
+  decisions were gathered into one place each: each ``FLIGHTS`` case's
+  tallies, ``stats``, counters and span counts, traced, bit for bit as
+  ``tests/data/flight_outputs.npz`` holds them (written by
+  :func:`write_flights`; rewrite it only where a flight is meant to
+  change).
 * Without a card nothing replays: ``stats['graph_steps']`` and the
   ``flight.graph.*`` counters read 0.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -224,9 +231,59 @@ def flight(case, stats, photons=6000, batch=2048):
                                       photons, gen, stats=stats, **extra)
 
 
+FLIGHT_OUTPUTS = Path(__file__).parent / 'data' / 'flight_outputs.npz'
+TALLIES = ('rad', 'flux', 'n_launched', 'n_steps', 'rad_plen', 'lane_iters',
+           'absorbed')
+
+
+def traced_flight(case):
+    """:func:`flight` of ``case``, traced: its tallies, and its ``stats``,
+    ``flight.*`` counters and span counts as one JSON text."""
+    stats = {}
+    scene()             # built, with its Mie tables, outside the trace
+    trace.reset()
+    trace.enable()
+    try:
+        tal = flight(case, stats)
+        rep = trace.report()
+    finally:
+        trace.enable(False)
+        trace.reset()
+    out = {f: getattr(tal, f).numpy() for f in TALLIES}
+    out['record'] = np.array(json.dumps(dict(
+        stats=stats, counters=rep['counters'],
+        spans={k: v['count'] for k, v in rep['spans'].items()}),
+        sort_keys=True))
+    return out
+
+
+def write_flights(path=FLIGHT_OUTPUTS):
+    """Write every flight case's outputs of :func:`traced_flight` to
+    ``path``."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **{f'{case}/{k}': v for case in FLIGHTS
+                                 for k, v in traced_flight(case).items()})
+
+
+@pytest.mark.parametrize('case', list(FLIGHTS))
+def test_flight_equals_the_pinned_flight(case):
+    """A whole flight (its deviates drawn by transport_flight, the drain
+    stages, the lane sort, the splitting and camera-importance substreams)
+    gives the tallies, ``stats``, counters and span counts bit for bit as
+    ``tests/data/flight_outputs.npz`` holds them."""
+    saved = np.load(FLIGHT_OUTPUTS)
+    got = traced_flight(case)
+    rec = json.loads(str(got.pop('record')))
+    assert rec == json.loads(str(saved[f'{case}/record']))
+    for k, v in got.items():
+        ref = saved[f'{case}/{k}']
+        assert v.dtype == ref.dtype and v.shape == ref.shape, k
+        np.testing.assert_array_equal(v, ref, err_msg=f'{case} {k}')
+    assert rec['stats']['stage_steps'] and got['n_launched'] > 0
+
+
 def same_flight(a, b):
-    for f in ('rad', 'flux', 'n_launched', 'n_steps', 'rad_plen',
-              'lane_iters', 'absorbed'):
+    for f in TALLIES:
         np.testing.assert_array_equal(getattr(a, f).numpy(),
                                       getattr(b, f).numpy(), err_msg=f)
 
@@ -308,3 +365,5 @@ def test_cpu_flights_do_not_replay():
 
 if __name__ == '__main__' and sys.argv[1:] == ['--write']:
     write_outputs()
+if __name__ == '__main__' and sys.argv[1:] == ['--write-flights']:
+    write_flights()

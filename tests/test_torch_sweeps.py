@@ -333,7 +333,7 @@ def test_drain_tracer_drains_through_migrate_dir(mie, monkeypatch,  # noqa: F811
 
 
 def test_decomp_ranks_are_transport_decomps(monkeypatch):
-    """rank_kernels and rank_step are the per-rank setup and step that
+    """rank_kernels and flight_step are the per-rank setup and step that
     transport_decomp runs: with them stepped by hand as transport_decomp
     steps them, one superstep and its swaps give the same carries."""
     from test_torch_chip_smoke import _small_scene
@@ -356,9 +356,9 @@ def test_decomp_ranks_are_transport_decomps(monkeypatch):
     ranks = t_decomp.rank_kernels(scene, st, cfg, mesh, 500, 5,
                                   spawn_reserve=min(64 // 2, 256 // 8))
     cs = [kern.carry0(256) for kern, *_ in ranks]
-    for k, rk in enumerate(ranks):
+    for k, (kern, gen, q_off) in enumerate(ranks):
         for _ in range(4):
-            cs[k] = t_decomp.rank_step(cfg, cs[k], *rk)
+            cs[k] = t_flight.flight_step(kern, gen, cs[k], q_off)
     k0 = ranks[0][0]
     for right in (True, False):
         cs = plain(mesh, cs, 64, k0.lx_loc, k0.zd_hi, k0.roam, right)
